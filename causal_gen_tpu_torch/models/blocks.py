@@ -1,0 +1,160 @@
+"""Conv building blocks of the HVAE image mechanism (PyTorch, NCHW).
+
+Counterpart of ``causal_gen_tpu/models/blocks.py``: ``Block`` (reference
+src/vae.py:33-84), ``Encoder`` (vae.py:87-134) and ``upsample_nearest``.
+Submodules carry flax's auto-generated names (``Conv_0``, ``width_proj``,
+``blocks_3``, ...) so that a converted flax parameter tree loads as a
+``state_dict`` key for key (see ``convert.py``).
+
+Padding: flax "SAME" for an odd kernel at stride 1 is ``k // 2`` on every side,
+which is what ``_conv`` sets.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import Tensor, nn
+
+# flax's lecun_normal draws a normal truncated at +-2 std, rescaled by this
+# constant so that the truncated draw keeps unit variance
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(w: Tensor, generator: Optional[torch.Generator], scale: float = 1.0,
+                  fan_in: Optional[int] = None) -> None:
+    """In place: flax's lecun_normal times ``scale``. The fan-in defaults to
+    that of an OIHW or (out, in) torch kernel."""
+    fan_in = w[0].numel() if fan_in is None else fan_in
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    with torch.no_grad():
+        nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+        w.mul_(scale)
+
+
+def init_params(module: nn.Module, generator: Optional[torch.Generator] = None) -> nn.Module:
+    """Initialise ``module`` as flax initialises its counterpart: lecun-normal
+    conv/dense kernels, zero biases, unit norm scales; then each submodule with
+    an ``init_extra_`` method applies its own rule (a scaled or zero last conv,
+    a lecun-normal parameter that is not a layer's)."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            lecun_normal_(m.weight, generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, (nn.GroupNorm, nn.LayerNorm)):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+    for m in module.modules():
+        if hasattr(m, "init_extra_"):
+            m.init_extra_(generator)
+    return module
+
+
+def _conv(cin: int, cout: int, k: int, **kw) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, k, padding=k // 2, **kw)
+
+
+class Block(nn.Module):
+    """Bottlenecked residual conv block (reference vae.py:33-84).
+
+    version=None: GELU 1x1 -> kxk -> kxk -> 1x1 body ("morphomnist" variant),
+    with exact erf GELU. version="light": ReLU kxk -> kxk two-conv body.
+    """
+
+    def __init__(self, in_width: int, bottleneck: int, out_width: int,
+                 kernel_size: int = 3, residual: bool = True,
+                 down_rate: Optional[int] = None, version: Optional[str] = None,
+                 last_scale: float = 1.0):
+        super().__init__()
+        k = kernel_size
+        self.version = version
+        self.residual = residual
+        self.down_rate = down_rate
+        self.last_scale = last_scale
+        if version == "light":
+            convs = [_conv(in_width, bottleneck, k), _conv(bottleneck, out_width, k)]
+        else:
+            convs = [_conv(in_width, bottleneck, 1), _conv(bottleneck, bottleneck, k),
+                     _conv(bottleneck, bottleneck, k), _conv(bottleneck, out_width, 1)]
+        for i, c in enumerate(convs):
+            self.add_module(f"Conv_{i}", c)
+        self._convs = convs
+        # width projection exists when downsampling or narrowing (vae.py:70-71)
+        if residual and in_width != out_width:
+            self.width_proj = _conv(in_width, out_width, 1)
+        else:
+            self.width_proj = None
+
+    def init_extra_(self, generator: Optional[torch.Generator]) -> None:
+        last = self._convs[-1].weight
+        if self.last_scale == 0.0:
+            nn.init.zeros_(last)
+        else:
+            lecun_normal_(last, generator, self.last_scale)
+
+    def forward(self, x: Tensor) -> Tensor:
+        act = F.relu if self.version == "light" else (lambda v: F.gelu(v, approximate="none"))
+        out = x
+        for c in self._convs:
+            out = c(act(out))
+        if self.residual:
+            if self.width_proj is not None:
+                x = self.width_proj(x)
+            out = x + out
+        if self.down_rate:
+            out = F.avg_pool2d(out, self.down_rate, self.down_rate)
+        return out
+
+
+class Encoder(nn.Module):
+    """Bottom-up encoder producing activations keyed by spatial resolution
+    (reference vae.py:87-134)."""
+
+    def __init__(self, stages: Tuple, widths: Tuple[int, ...], bottleneck: int,
+                 input_channels: int, version: Optional[str] = None):
+        super().__init__()
+        flat = []
+        stem_width, stem_stride = widths[0], 1
+        for i, stage in enumerate(stages):
+            if i == 0 and stage.n_blocks == 0 and stage.down_rate is None:
+                stem_width, stem_stride = widths[1], 2
+                continue
+            flat += [(widths[i], None) for _ in range(stage.n_blocks)]
+            if stage.down_rate is not None:
+                flat += [(widths[i + 1], stage.down_rate)]
+        self.stem = nn.Conv2d(input_channels, stem_width, 7, stride=stem_stride, padding=3)
+        n = len(flat)
+        blocks = []
+        for i, (width, d) in enumerate(flat):
+            prev_width = flat[max(0, i - 1)][0]
+            blocks.append(Block(prev_width, prev_width // bottleneck, width, down_rate=d,
+                                version=version, last_scale=float(math.sqrt(1.0 / n))))
+            self.add_module(f"blocks_{i}", blocks[-1])
+        self._blocks = blocks
+
+    def forward(self, x: Tensor) -> Dict[int, Tensor]:
+        x = self.stem(x)
+        acts: Dict[int, Tensor] = {}
+        for block in self._blocks:
+            x = block(x)
+            res = x.shape[2]
+            if res % 2 and res > 1:  # pad odd resolutions (reference vae.py:131-132)
+                x = F.pad(x, (0, 1, 0, 1))
+            acts[x.shape[2]] = x
+        return acts
+
+
+def upsample_nearest(x: Tensor, target_res: int) -> Tensor:
+    """Nearest-neighbour upsample of NCHW to ``target_res`` by an integer factor
+    (F.interpolate(mode='nearest'), reference vae.py:253, 259)."""
+    h = x.shape[2]
+    if target_res == h:
+        return x
+    if target_res % h:
+        raise ValueError(f"upsample_nearest: {h} -> {target_res} is not an integer factor")
+    f = target_res // h
+    return x.repeat_interleave(f, dim=2).repeat_interleave(f, dim=3)

@@ -1,0 +1,92 @@
+"""Image likelihood heads (PyTorch, NCHW).
+
+Counterpart of ``causal_gen_tpu/models/likelihoods.py``: ``DGaussNet`` (the
+discretized Gaussian of reference src/vae.py:322-423) and the dgauss branch of
+``make_likelihood``. The logit-Normal and DMoL heads come with later slices.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+from torch import Tensor, nn
+
+from causal_gen_tpu_torch.models.blocks import lecun_normal_
+from causal_gen_tpu_torch.ops.distributions import EPS_LOGSCALE, discretized_gaussian_nll
+
+
+class DGaussNet(nn.Module):
+    """Discretized Gaussian head (reference vae.py:322-423).
+
+    ``x_logscale_kernel`` keeps flax's (width, channels) shape. With
+    ``std_init > 0``, "fixed" freezes its kernel and bias and "shared" its
+    kernel (vae.py:335-348): here they enter the graph detached.
+    """
+
+    def __init__(self, input_channels: int, width: int, x_like: str = "diag_dgauss",
+                 std_init: float = 0.0):
+        super().__init__()
+        cov = x_like.split("_")[0]
+        if cov not in ("fixed", "shared", "diag"):
+            raise NotImplementedError(f"{x_like} not implemented.")
+        self.covariance = cov
+        self.input_channels = input_channels
+        self.std_init = std_init
+        self.x_loc = nn.Conv2d(width, input_channels, 1)
+        self.x_logscale_kernel = nn.Parameter(torch.zeros(width, input_channels))
+        self.x_logscale_bias = nn.Parameter(torch.zeros(input_channels))
+        self.channel_coeffs = nn.Conv2d(width, 3, 1) if input_channels == 3 else None
+
+    def init_extra_(self, generator: Optional[torch.Generator]) -> None:
+        with torch.no_grad():
+            if self.std_init > 0:
+                self.x_logscale_kernel.zero_()
+                self.x_logscale_bias.fill_(math.log(self.std_init))
+            else:
+                lecun_normal_(self.x_logscale_kernel, generator,
+                              fan_in=self.x_logscale_kernel.shape[0])
+                self.x_logscale_bias.zero_()
+
+    def _logscale(self, h: Tensor) -> Tensor:
+        k, b = self.x_logscale_kernel, self.x_logscale_bias
+        if self.std_init > 0:
+            if self.covariance == "fixed":
+                k, b = k.detach(), b.detach()
+            elif self.covariance == "shared":
+                k = k.detach()
+        return torch.einsum("bchw,co->bohw", h, k) + b[None, :, None, None]
+
+    def forward(self, h: Tensor, x: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+        loc = self.x_loc(h)
+        logscale = torch.clamp(self._logscale(h), min=EPS_LOGSCALE)
+        if self.input_channels == 3:  # RGB autoregression (vae.py:357-381)
+            coeff = torch.tanh(self.channel_coeffs(h))
+            if x is None:  # inference: condition on clipped predicted subpixels
+                r = torch.clamp(loc[:, 0], -1, 1)
+                g = torch.clamp(loc[:, 1] + coeff[:, 0] * r, -1, 1)
+                b_ = torch.clamp(loc[:, 2] + coeff[:, 1] * r + coeff[:, 2] * g, -1, 1)
+            else:  # training: condition on true subpixels
+                r = loc[:, 0]
+                g = loc[:, 1] + coeff[:, 0] * x[:, 0]
+                b_ = loc[:, 2] + coeff[:, 1] * x[:, 0] + coeff[:, 2] * x[:, 1]
+            loc = torch.stack([r, g, b_], dim=1)
+        return loc, logscale
+
+    def nll(self, h: Tensor, x: Tensor) -> Tensor:
+        loc, logscale = self(h, x)
+        return discretized_gaussian_nll(loc, logscale, x)
+
+    def sample(self, h: Tensor) -> Tuple[Tensor, Tensor]:
+        """(clamped loc, scale): the JAX head's ``sample`` with
+        ``return_loc=True``, the only mode the counterfactual path uses."""
+        loc, logscale = self(h)
+        return torch.clamp(loc, -1.0, 1.0), torch.exp(logscale)
+
+
+def make_likelihood(input_channels: int, width: int, x_like: str, std_init: float) -> DGaussNet:
+    kind = x_like.split("_")[1]
+    if kind == "dgauss":
+        return DGaussNet(input_channels, width, x_like, std_init)
+    raise NotImplementedError(f"{x_like}: only the dgauss heads are ported so far")

@@ -1,0 +1,85 @@
+"""Distribution math for the image mechanisms and the PGM sites.
+
+Counterpart of ``causal_gen_tpu/ops/distributions.py``; the same formulas in
+the same order, in float32. The 1e-12 floors sit below bf16 resolution, so
+this math stays float32 whatever the conv dtype.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import Tensor
+
+EPS_LOGSCALE = -9.0  # minimum logscale (reference vae.py:11)
+
+
+def gaussian_kl(q_loc: Tensor, q_logscale: Tensor, p_loc: Tensor, p_logscale: Tensor) -> Tensor:
+    """KL(q || p) per element for diagonal Gaussians (reference vae.py:14-25)."""
+    return (
+        -0.5
+        + p_logscale
+        - q_logscale
+        + 0.5
+        * (torch.exp(q_logscale) ** 2 + (q_loc - p_loc) ** 2)
+        / torch.exp(p_logscale) ** 2
+    )
+
+
+def sample_gaussian(
+    loc: Tensor,
+    logscale: Tensor,
+    noise: Optional[Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Tensor:
+    """Reparameterized Gaussian sample (reference vae.py:28-30). ``noise`` is
+    the standard-normal draw; without it one is drawn from ``generator``."""
+    if noise is None:
+        noise = torch.randn(loc.shape, generator=generator, dtype=loc.dtype,
+                            device=loc.device)
+    return loc + torch.exp(logscale) * noise
+
+
+def approx_cdf(x: Tensor) -> Tensor:
+    """tanh-based standard normal CDF approximation (reference vae.py:388-391)."""
+    return 0.5 * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (x + 0.044715 * x**3)))
+
+
+def discretized_gaussian_nll(loc: Tensor, logscale: Tensor, x: Tensor) -> Tensor:
+    """Per-image mean NLL of the 8-bit-discretized Gaussian likelihood.
+
+    x is in [-1, 1]; bin width 2/255. Mirrors reference vae.py:393-411,
+    including the +-0.999 edge branches and the 1e-12 floors; reduces with a
+    mean over all non-batch axes.
+    """
+    centered_x = x - loc
+    inv_stdv = torch.exp(-logscale)
+    cdf_plus = approx_cdf(inv_stdv * (centered_x + 1.0 / 255.0))
+    cdf_min = approx_cdf(inv_stdv * (centered_x - 1.0 / 255.0))
+    log_cdf_plus = torch.log(torch.clamp(cdf_plus, min=1e-12))
+    log_one_minus_cdf_min = torch.log(torch.clamp(1.0 - cdf_min, min=1e-12))
+    cdf_delta = cdf_plus - cdf_min
+    log_probs = torch.where(
+        x < -0.999,
+        log_cdf_plus,
+        torch.where(
+            x > 0.999, log_one_minus_cdf_min, torch.log(torch.clamp(cdf_delta, min=1e-12))
+        ),
+    )
+    return -1.0 * torch.mean(log_probs, dim=tuple(range(1, x.ndim)))
+
+
+_LOG_2PI = math.log(2.0 * math.pi)
+
+
+def normal_logpdf(x: Tensor, loc: Tensor, scale: Tensor) -> Tensor:
+    z = (x - loc) / scale
+    return -0.5 * (z**2 + _LOG_2PI) - torch.log(scale)
+
+
+def onehot_categorical_logpmf(x_onehot: Tensor, logits: Tensor) -> Tensor:
+    """log p(one-hot x) under Categorical(logits); sums over the class axis."""
+    return torch.sum(x_onehot * F.log_softmax(logits, dim=-1), dim=-1)

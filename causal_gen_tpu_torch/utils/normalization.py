@@ -1,0 +1,30 @@
+"""Attribute normalization constants: a copy of the parts of
+``causal_gen_tpu/utils/normalization.py`` that the port reads.
+
+These constants are load-bearing for checkpoint compatibility across the
+mechanisms and must not drift from the JAX package's.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+# UKBB attribute (max, min) stats (reference datasets.py:89-98)
+UKBB_ATTR_MAX_MIN = {
+    "age": (73.0, 44.0),
+    "brain_volume": (1629520.0, 841919.0),
+    "ventricle_volume": (157075.0, 7613.27001953125),
+}
+
+# Morpho-MNIST morphometric [min, max] (reference datasets.py:230-233)
+MORPHOMNIST_MIN_MAX = {
+    "thickness": (0.87598526, 6.255515),
+    "intensity": (66.601204, 254.90317),
+}
+
+
+def get_attr_max_min(attr: str) -> Tuple[float, float]:
+    """(max, min) for UKBB attributes (reference datasets.py:89-98)."""
+    if attr not in UKBB_ATTR_MAX_MIN:
+        raise NotImplementedError(attr)
+    return UKBB_ATTR_MAX_MIN[attr]
