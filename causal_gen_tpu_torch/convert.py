@@ -10,7 +10,9 @@ The port's modules carry flax's names, so a key maps by its path:
 ``decoder/blocks_0/prior/Conv_0/kernel`` -> ``decoder.blocks_0.prior.Conv_0.weight``.
 Leaves change as follows:
 
-- conv ``kernel`` (4-D, HWIO) -> ``weight`` in OIHW;
+- conv ``kernel`` (4-D, HWIO) -> ``weight`` in OIHW (the 1x1 convs of the
+  heads too: DmolNet's ``likelihood/conv`` keeps the JAX channel order of
+  its 10K outputs);
 - dense ``kernel`` (2-D, (in, out)) -> ``weight`` in (out, in);
 - norm ``scale`` -> ``weight``;
 - the decoder's per-resolution ``bias_<r>`` (1, r, r, C) -> (1, C, r, r);

@@ -1,0 +1,171 @@
+"""Datasets of the training path: Morpho-MNIST and Colour-MNIST.
+
+Counterpart of ``causal_gen_tpu/data/datasets.py`` (reference src/datasets.py
+MorphoMNIST 202-304, ColourMNIST 307-389). Each dataset is held as contiguous
+numpy arrays (uint8 NHWC images and float32 parents); a batch is
+{"x": uint8 (B,H,W,C), "pa": float32 (B, context_dim)} with the parents in
+``cfg.parents_x`` order (digit and colour one-hot). The UK Biobank, MIMIC and
+3-D datasets come with their slices: ``setup_datasets`` refuses them.
+"""
+
+from __future__ import annotations
+
+import csv
+import os
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from causal_gen_tpu_torch.config import Config
+from causal_gen_tpu_torch.data import augment
+from causal_gen_tpu_torch.data.idx import load_idx
+from causal_gen_tpu_torch.utils.normalization import MORPHOMNIST_MIN_MAX, normalize
+
+
+def one_hot_np(x: np.ndarray, num_classes: int) -> np.ndarray:
+    return np.eye(num_classes, dtype=np.float32)[np.asarray(x, np.int64)]
+
+
+@dataclass
+class ArrayDataset:
+    """In-memory dataset: images and named parent attributes.
+
+    ``attrs`` values are float32, (N,) for scalars and (N, K) for one-hots;
+    ``columns`` fixes the pa concatenation order. ``aug`` is
+    ("random_crop_flip", (out_h, out_w), (pad_h, pad_w), hflip_p),
+    ("center_pad", pad) or None.
+    """
+
+    images: np.ndarray  # (N, H, W, C) uint8
+    attrs: Dict[str, np.ndarray]
+    columns: Tuple[str, ...]
+    aug: Optional[Tuple] = None
+
+    def __len__(self) -> int:
+        return self.images.shape[0]
+
+    @property
+    def pa(self) -> np.ndarray:
+        """(N, context_dim) parents concatenated in ``columns`` order."""
+        cols = [self.attrs[k][:, None] if self.attrs[k].ndim == 1 else self.attrs[k]
+                for k in self.columns]
+        return np.concatenate(cols, axis=1).astype(np.float32)
+
+    def batch(self, idx: np.ndarray, rng: Optional[np.random.Generator] = None
+              ) -> Dict[str, np.ndarray]:
+        rng = rng if rng is not None else np.random.default_rng(0)
+        if self.aug is not None and self.aug[0] == "random_crop_flip":
+            _, size, padding, hflip_p = self.aug
+            x = augment.gather_crop_flip(self.images, idx, rng, size, padding, hflip_p)
+        elif self.aug is not None and self.aug[0] == "center_pad":
+            x = augment.center_pad(self.images[idx], self.aug[1])
+        else:
+            x = self.images[idx]
+        return {"x": x, "pa": self.pa[idx]}
+
+
+# ---------------------------------------------------------------------------
+# Morpho-MNIST (reference datasets.py:202-304)
+# ---------------------------------------------------------------------------
+
+
+def _morphomnist_paths(root: str, train: bool) -> Tuple[str, str, str]:
+    prefix = "train" if train else "t10k"
+    return (os.path.join(root, f"{prefix}-images-idx3-ubyte.gz"),
+            os.path.join(root, f"{prefix}-labels-idx1-ubyte.gz"),
+            os.path.join(root, f"{prefix}-morpho.csv"))
+
+
+def _read_columns(path: str, columns: List[str]) -> Dict[str, np.ndarray]:
+    """The named float columns of a morphometrics CSV, in file order."""
+    with open(path, newline="") as f:
+        rows = list(csv.DictReader(f))
+    return {k: np.array([float(r[k]) for r in rows], np.float32) for k in columns}
+
+
+def load_morphomnist(root: str, train: bool, columns: List[str]
+                     ) -> Tuple[np.ndarray, np.ndarray, Dict[str, np.ndarray]]:
+    img_p, lab_p, met_p = _morphomnist_paths(root, train)
+    return load_idx(img_p), load_idx(lab_p), _read_columns(met_p, columns)
+
+
+def morphomnist(cfg: Config, data_dir: Optional[str] = None) -> Dict[str, ArrayDataset]:
+    """train/valid/test (test == valid, reference datasets.py:297)."""
+    root = data_dir or cfg.data_dir
+    cols_not_digit = [c for c in cfg.parents_x if c != "digit"]
+
+    def build(train: bool) -> ArrayDataset:
+        images, labels, metrics = load_morphomnist(root, train, cols_not_digit)
+        attrs: Dict[str, np.ndarray] = {}
+        for k, v in metrics.items():
+            lo, hi = MORPHOMNIST_MIN_MAX[k]
+            if cfg.context_norm == "[-1,1]":
+                v = normalize(v, x_min=lo, x_max=hi)
+            elif cfg.context_norm == "[0,1]":
+                v = normalize(v, x_min=lo, x_max=hi, zero_one=True)
+            attrs[k] = v.astype(np.float32)
+        attrs["digit"] = one_hot_np(labels, 10)
+        return ArrayDataset(images=images[..., None], attrs=attrs, columns=tuple(cfg.parents_x))
+
+    res = (cfg.input_res, cfg.input_res)
+    have_train = os.path.exists(_morphomnist_paths(root, True)[0])
+    train_ds = build(have_train)
+    train_ds.aug = ("random_crop_flip", res, (cfg.pad, cfg.pad), 0.0)
+    eval_ds = build(False)
+    eval_ds.aug = ("center_pad", 2)
+    return {"train": train_ds, "valid": eval_ds, "test": eval_ds}
+
+
+# ---------------------------------------------------------------------------
+# Colour-MNIST (reference datasets.py:307-389)
+# ---------------------------------------------------------------------------
+
+
+def cmnist(cfg: Config, data_dir: Optional[str] = None, corrupt_p: Optional[float] = None,
+           seed: int = 0) -> Dict[str, ArrayDataset]:
+    root = data_dir or cfg.data_dir
+    corrupt_p = cfg.corrupt_p if corrupt_p is None else corrupt_p
+
+    def build(train: bool) -> ArrayDataset:
+        sub = os.path.join(root, "train" if train else "test")
+        images = np.load(os.path.join(sub, "images.npy"))
+        parents = np.load(os.path.join(sub, "parents.npy"), allow_pickle=True).item()
+        digit = np.asarray(parents["digit"], np.int64)
+        colour = np.asarray(parents["colour"], np.int64)
+        if train and corrupt_p > 0:
+            # move the first corrupt_p of a permutation to another class
+            # (reference datasets.py:325-343)
+            rng = np.random.default_rng(seed)
+            n_c = int(corrupt_p * len(images))
+            idx = rng.permutation(len(images))[:n_c]
+            for arr in (digit, colour):
+                shift = rng.integers(1, 10, size=n_c)  # never 0, so always changed
+                arr[idx] = (arr[idx] + shift) % 10
+        attrs = {"digit": one_hot_np(digit, 10), "colour": one_hot_np(colour, 10)}
+        if images.ndim == 3:
+            images = images[..., None]
+        if images.shape[-1] not in (1, 3):  # NCHW on disk -> NHWC
+            images = np.transpose(images, (0, 2, 3, 1))
+        return ArrayDataset(images=images.astype(np.uint8), attrs=attrs,
+                            columns=tuple(cfg.parents_x))
+
+    res = (cfg.input_res, cfg.input_res)
+    train_ds = build(True)
+    train_ds.aug = ("random_crop_flip", res, (cfg.pad, cfg.pad), 0.0)
+    eval_ds = build(False)
+    eval_ds.aug = ("center_pad", 2)
+    return {"train": train_ds, "valid": eval_ds, "test": eval_ds}
+
+
+DATASETS = {"morphomnist": morphomnist, "cmnist": cmnist}
+
+
+def setup_datasets(cfg: Config, data_dir: Optional[str] = None) -> Dict[str, ArrayDataset]:
+    """Dataset dispatch on the config name's prefix (reference
+    train_setup.py:16-28)."""
+    for prefix, make in DATASETS.items():
+        if cfg.name.startswith(prefix):
+            return make(cfg, data_dir)
+    raise NotImplementedError(f"no dataset for config '{cfg.name}' in the port yet "
+                              f"(have {sorted(DATASETS)})")

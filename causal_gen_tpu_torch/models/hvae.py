@@ -5,9 +5,11 @@ with the mechanism API ``forward`` (the ELBO), ``abduct`` and
 ``forward_latents``.
 
 Every posterior draw goes through ``ops.sample_kl.fused_sample_kl`` (K1): the
-CUDA kernel on the card, its plain version on the CPU. The JAX model's two
-branches (hvae.py:429-447) compute the same math and differ only in their
-random stream, so the port has the one path.
+CUDA kernels on the card, forward and backward, its plain version on the CPU.
+The JAX model's two branches (hvae.py:429-447) compute the same math and
+differ only in their random stream, so the port has the one path. Training
+differentiates ``forward`` (the ELBO, with the free-bits branch) through
+every block and through K1; a DMoL head's NLL goes through K3.
 
 Random draws take ``noise``, an iterator of standard-normal tensors consumed
 in draw order (posterior draws in block order, then any prior draws), or

@@ -1,8 +1,10 @@
 """Image likelihood heads (PyTorch, NCHW).
 
 Counterpart of ``causal_gen_tpu/models/likelihoods.py``: ``DGaussNet`` (the
-discretized Gaussian of reference src/vae.py:322-423) and the dgauss branch of
-``make_likelihood``. The logit-Normal and DMoL heads come with later slices.
+discretized Gaussian of reference src/vae.py:322-423), ``DmolNet`` (the
+mixture of logistics, reference dmol.py:218-245) and the dgauss and dmol
+branches of ``make_likelihood``. The logit-Normal head comes with a later
+slice.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from torch import Tensor, nn
 
 from causal_gen_tpu_torch.models.blocks import lecun_normal_
 from causal_gen_tpu_torch.ops.distributions import EPS_LOGSCALE, discretized_gaussian_nll
+from causal_gen_tpu_torch.ops.dmol_loss import dmol_loss
 
 
 class DGaussNet(nn.Module):
@@ -85,8 +88,35 @@ class DGaussNet(nn.Module):
         return torch.clamp(loc, -1.0, 1.0), torch.exp(logscale)
 
 
-def make_likelihood(input_channels: int, width: int, x_like: str, std_init: float) -> DGaussNet:
+class DmolNet(nn.Module):
+    """Discretized mixture-of-logistics head (reference dmol.py:218-245): a
+    1x1 conv to 10K channels in the JAX package's order. ``nll`` is K3 on the
+    card and the plain op on the CPU."""
+
+    def __init__(self, input_channels: int, width: int, num_mixtures: int = 10):
+        super().__init__()
+        if input_channels != 3:
+            raise NotImplementedError("DMoL head expects RGB input")
+        self.num_mixtures = num_mixtures
+        self.conv = nn.Conv2d(width, num_mixtures * 10, 1)
+
+    def forward(self, h: Tensor, x: Optional[Tensor] = None) -> Tensor:
+        return self.conv(h)
+
+    def nll(self, h: Tensor, x: Tensor) -> Tensor:
+        return dmol_loss(x, self.conv(h))
+
+    def sample(self, h: Tensor) -> Tuple[Tensor, Tensor]:
+        raise NotImplementedError(
+            "DmolNet.sample: the mean decode and the sampler (K4, dmol_sample_pallas) "
+            "come with the sampling slice")
+
+
+def make_likelihood(input_channels: int, width: int, x_like: str,
+                    std_init: float) -> nn.Module:
     kind = x_like.split("_")[1]
     if kind == "dgauss":
         return DGaussNet(input_channels, width, x_like, std_init)
-    raise NotImplementedError(f"{x_like}: only the dgauss heads are ported so far")
+    if kind == "dmol":
+        return DmolNet(input_channels, width)
+    raise NotImplementedError(f"{x_like}: only the dgauss and dmol heads are ported so far")

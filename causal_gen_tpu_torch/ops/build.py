@@ -19,9 +19,12 @@ from typing import Dict, List
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES: Dict[str, Path] = {"sample_kl": PACKAGE_DIR / "csrc" / "sample_kl.cu"}
+SOURCES: Dict[str, Path] = {name: PACKAGE_DIR / "csrc" / f"{name}.cu"
+                            for name in ("sample_kl", "dmol_loss")}
+# -fmad=false: no multiply-add is contracted, so a kernel rounds one operation
+# at a time as its plain PyTorch version does
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 BUILD_TIMEOUT_S = 300
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

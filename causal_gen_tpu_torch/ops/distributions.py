@@ -72,6 +72,13 @@ def discretized_gaussian_nll(loc: Tensor, logscale: Tensor, x: Tensor) -> Tensor
     return -1.0 * torch.mean(log_probs, dim=tuple(range(1, x.ndim)))
 
 
+def log_prob_from_logits(x: Tensor, dim: int = -1) -> Tensor:
+    """Numerically stable log-softmax over ``dim`` (reference dmol.py:7-11),
+    written out as the JAX package writes it."""
+    m = torch.amax(x, dim=dim, keepdim=True)
+    return x - m - torch.log(torch.sum(torch.exp(x - m), dim=dim, keepdim=True))
+
+
 _LOG_2PI = math.log(2.0 * math.pi)
 
 

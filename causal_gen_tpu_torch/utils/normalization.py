@@ -1,4 +1,4 @@
-"""Attribute normalization constants: a copy of the parts of
+"""Attribute normalization: a copy of the parts of
 ``causal_gen_tpu/utils/normalization.py`` that the port reads.
 
 These constants are load-bearing for checkpoint compatibility across the
@@ -28,3 +28,9 @@ def get_attr_max_min(attr: str) -> Tuple[float, float]:
     if attr not in UKBB_ATTR_MAX_MIN:
         raise NotImplementedError(attr)
     return UKBB_ATTR_MAX_MIN[attr]
+
+
+def normalize(x, x_min: float, x_max: float, zero_one: bool = False):
+    """Min-max normalize to [0,1] or [-1,1] (reference utils.py:43-51)."""
+    x = (x - x_min) / (x_max - x_min)
+    return x if zero_one else 2 * x - 1

@@ -6,15 +6,30 @@ plain versions.
 
 Phases, one progress line each:
   1. device  - the card's name and power limit (nvidia-smi)
-  2. build   - nvcc builds every kernel of the port (one process per source)
+  2. build   - nvcc builds every kernel of the port (one process per source,
+               all started together)
   3. K1      - fused_sample_kl against its plain version at every decoder shape
                of the slice and a ragged size; Philox statistics; its time
-  4. slice   - DSCM.forward do(thickness) at the full Morpho-MNIST width, bs 32,
+  4. K1-bwd  - its backward kernel against autograd of the plain version at
+               the same shapes, with injected eps and on the Philox path; its time
+  5. K3      - the DMoL loss kernels, forward and backward, against the plain op
+               and its autograd at (32,100,32,32) and at a ragged size with
+               pixels at -1, 1 and the 1e-5 switch; their times
+  6. slice   - DSCM.forward do(thickness) at the full Morpho-MNIST width, bs 32,
                weights and batch from a seed: the main path with the launch
                counts read around it, parity with the CPU plain path on the same
                weights and noise, the null-intervention identity, the
                2-particle variance map, the time per forward, and the
                device time by kernel under torch.profiler
+  7. train   - for morphomnist and for cmnist with the diag_dmol head, at full
+               width, bs 32: three updates and one step forced to skip, card
+               against the CPU plain path from the same weights, batches and
+               noise; the launch counts around one step; the time of a step
+               (and at bs 256 for morphomnist); device time under the profiler
+  8. entry   - train() through cli.main on each configuration with an
+               in-memory dataset made from the seed: 2 epochs of 3 batches, one
+               evaluation, a checkpoint written and read back; the launch
+               counts around it are the kernels line's
 The last two lines are the kernels JSON and the result JSON. Any failure
 exits non-zero without the result line; the whole run stops itself after
 DEADLINE_S. Needs a CUDA device and the rest of the repository; reads no data
@@ -25,6 +40,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -34,6 +50,7 @@ import time
 
 DEADLINE_S = 600
 BS = 32
+BENCH_BS = 256  # bench.py's Morpho-MNIST train step
 SEED = 0
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -108,11 +125,15 @@ def phase_build():
     return secs
 
 
-def k1_shapes(cfg):
+def k1_res(cfg):
+    """The resolution of each stochastic decoder block, in order."""
     from causal_gen_tpu_torch.models.hvae import plan_decoder_blocks
 
-    res = sorted({r for r, _ in plan_decoder_blocks(cfg) if r <= cfg.z_max_res})
-    return [(BS, cfg.z_dim, r, r) for r in res]
+    return [r for r, _ in plan_decoder_blocks(cfg) if r <= cfg.z_max_res]
+
+
+def k1_shapes(cfg):
+    return [(BS, cfg.z_dim, r, r) for r in sorted(set(k1_res(cfg)))]
 
 
 def phase_k1(cfg):
@@ -182,6 +203,183 @@ def phase_k1(cfg):
             "bound_ms": bound_ms,
             "ms_philox": philox_ms, "bound_ms_philox": bound_philox_ms, "shape": list(shape),
             "philox_mean": mean, "philox_std": std}
+
+
+def phase_k1_bwd(cfg):
+    import torch
+
+    from causal_gen_tpu_torch.ops.sample_kl import (fused_sample_kl, fused_sample_kl_bwd,
+                                                    fused_sample_kl_bwd_ref, fused_sample_kl_ref)
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(SEED + 5)
+
+    def inputs(shape):
+        return [(torch.randn(shape, generator=g) * s).to(dev) for s in (1.0, 0.3, 1.0, 0.3)]
+
+    def grads(fn, args, w, v):
+        # the KL is summed over space as the HVAE sums it, so its cotangent
+        # reaches the backward as a stride-0 broadcast
+        leaves = [a.clone().requires_grad_() for a in args]
+        z, kl = fn(*leaves)
+        red = kl.sum(dim=tuple(range(2, kl.dim()))) if kl.dim() > 2 else kl
+        return torch.autograd.grad((z * w).sum() + (red * v).sum(), leaves)
+
+    max_err = 0.0
+    for shape in k1_shapes(cfg) + [(1_000_003,)]:
+        args = inputs(shape)
+        w = torch.randn(shape, generator=g).to(dev)
+        v = torch.randn(shape[:2] if len(shape) > 2 else shape, generator=g).to(dev)
+        eps = torch.randn(shape, generator=g).to(dev)
+        seed = torch.Generator().manual_seed(SEED + 6)
+        z_ph, _ = fused_sample_kl(*args, generator=seed)
+        eps_ph = (z_ph - args[0]) / torch.exp(args[1])  # Philox's eps, recovered
+        for name, kernel, e in (
+                ("injected eps", lambda *a, e=eps: fused_sample_kl(*a, eps=e), eps),
+                ("Philox", lambda *a: fused_sample_kl(
+                    *a, generator=torch.Generator().manual_seed(SEED + 6)), eps_ph)):
+            got = grads(kernel, args, w, v)
+            ref = grads(lambda *a, e=e: fused_sample_kl_ref(*a, e), args, w, v)
+            torch.cuda.synchronize()
+            for gk, gr in zip(got, ref):
+                err = (gk - gr).abs()
+                if not torch.all(err <= 1e-5 * (1 + gr.abs())):
+                    raise AssertionError(f"K1-bwd ({name}) disagrees with autograd of the plain "
+                                         f"version at {shape}: max err {err.max().item():.3e}")
+                max_err = max(max_err, err.max().item())
+    log("K1-bwd", f"kernel == autograd of the plain version within 1e-5*(1+|ref|), injected "
+                  f"eps and Philox, at {k1_shapes(cfg)} and (1000003,); max abs err {max_err:.3e}")
+
+    shape = k1_shapes(cfg)[-1]
+    n = math.prod(shape)
+    rows = shape[0] * shape[1]
+    # 8 sets of 6 full-size tensors (100 MB) overflow the 50 MB L2: from device memory
+    sets = []
+    for _ in range(8):
+        args = inputs(shape)
+        z = torch.randn(shape, generator=g).to(dev)
+        gz = torch.randn(shape, generator=g).to(dev)
+        gkl = torch.randn(shape[:2], generator=g).to(dev)[:, :, None, None].expand(shape)
+        sets.append((args, z, gz, gkl))
+    ms = cuda_time_ms([lambda a=a, z=z, gz=gz, gk=gk: fused_sample_kl_bwd(*a, z, gz, gk)
+                       for a, z, gz, gk in sets])
+    plain_ms = cuda_time_ms([lambda a=a, z=z, gz=gz, gk=gk: fused_sample_kl_bwd_ref(*a, z, gz, gk)
+                             for a, z, gz, gk in sets])
+    # bytes: q_loc, q_logscale, p_loc, p_logscale, z, gz read once (24 B an
+    # element), gkl once per (batch, channel), four cotangents written (16 B);
+    # operations: 18 float32 ops an element (2 exp)
+    nbytes = 40 * n + 4 * rows
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, 18 * n / FP32_FLOPS_PER_S) * 1e3
+    log("K1-bwd", f"{shape} ({n} elements), from device memory: kernel {ms * 1e3:.2f} us "
+                  f"(bound {bound_ms * 1e3:.2f} us, {nbytes / n:.2f} B/elem), plain version "
+                  f"{plain_ms * 1e3:.2f} us")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bytes": nbytes, "shape": list(shape)}
+
+
+def k3_inputs(b, h, w, device, seed=SEED, narrow=True):
+    """NCHW x (b,3,h,w) on the 8-bit grid and l (b,100,h,w) ~ N(0, 1) for K3.
+    Row 0 of red is -1 and row 1 of green is 1 (the edge branches). With
+    ``narrow``, log-scales run from below the -7 floor to 1, and column 0 from
+    row 2 down puts every component at log-scale -6.9 (off the floor's tie,
+    where XLA's clip passes half the gradient) with inv*u spread over
+    [14, 18], so that cdf_delta crosses the 1e-5 switch there."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x = ((rng.integers(0, 256, (b, 3, h, w)) - 127.5) / 127.5).astype(np.float32)
+    x[:, 0, 0, :] = -1.0
+    x[:, 1, 1, :] = 1.0
+    l = rng.normal(0, 1, (b, 100, h, w)).astype(np.float32)
+    if narrow:
+        for c in range(3):
+            l[:, 20 + 30 * c: 30 + 30 * c] = rng.uniform(-7.5, 1.0, (b, 10, h, w))
+    if narrow and h > 2:
+        x[:, :, 2:, 0] = 0.2
+        v = np.linspace(14.0, 18.0, b * (h - 2) * 10).reshape(b, 10, h - 2)
+        for c in range(3):
+            base = 10 + 30 * c
+            l[:, base: base + 10, 2:, 0] = 0.2 - v * np.exp(-6.9)
+            l[:, base + 10: base + 20, 2:, 0] = -6.9
+            l[:, base + 20: base + 30, 2:, 0] = 0.0  # tanh(0): no coupling
+    return torch.from_numpy(x).to(device), torch.from_numpy(l).to(device)
+
+
+def k3_grad_close(got, ref) -> bool:
+    """The K3 gradient tolerance: 1e-5 |ref| + 1e-6 max |ref| per element.
+    Kernel and autograd evaluate d/du as a difference of two terms in
+    another order; where those cancel, the error scales with the terms (the
+    tensor's scale), not with the small result."""
+    return bool(torch_all_close(got, ref, 1e-5, 1e-6 * ref.abs().max().item()))
+
+
+def torch_all_close(got, ref, rtol, atol):
+    return ((got - ref).abs() <= atol + rtol * ref.abs()).all().item()
+
+
+def phase_k3():
+    import torch
+
+    from causal_gen_tpu_torch.ops.dmol import discretized_mix_logistic_loss, dmol_logprob_pixels
+    from causal_gen_tpu_torch.ops.dmol_loss import (dmol_logprob, dmol_loss, dmol_loss_bwd,
+                                                    dmol_loss_bwd_ref)
+
+    dev = torch.device("cuda")
+    err_fwd = err_bwd = 0.0
+    shapes = [(BS, 32, 32), (3, 7, 13)]
+    for shape in shapes:
+        x, l = k3_inputs(*shape, device=dev)
+        lp, lp_ref = dmol_logprob(x, l), dmol_logprob_pixels(x, l)
+        loss, loss_ref = dmol_loss(x, l), discretized_mix_logistic_loss(x, l)
+        torch.cuda.synchronize()
+        for got, ref, what in ((lp, lp_ref, "per-pixel log-prob"), (loss, loss_ref, "loss")):
+            if not torch_all_close(got, ref, 1e-5, 1e-5):
+                raise AssertionError(f"K3 forward ({what}) disagrees with the plain op at {shape}: "
+                                     f"max err {(got - ref).abs().max().item():.3e}")
+        err_fwd = max(err_fwd, (lp - lp_ref).abs().max().item())
+        g = torch.randn(shape[0], generator=torch.Generator().manual_seed(SEED + 7)).to(dev)
+        leaf = l.clone().requires_grad_()
+        (discretized_mix_logistic_loss(x, leaf) * g).sum().backward()
+        leaf_k = l.clone().requires_grad_()
+        (dmol_loss(x, leaf_k) * g).sum().backward()
+        torch.cuda.synchronize()
+        if not k3_grad_close(leaf_k.grad, leaf.grad):
+            raise AssertionError(f"K3 backward disagrees with autograd of the plain op at {shape}: "
+                                 f"max err {(leaf_k.grad - leaf.grad).abs().max().item():.3e} "
+                                 f"(max |ref| {leaf.grad.abs().max().item():.3e})")
+        err_bwd = max(err_bwd, (leaf_k.grad - leaf.grad).abs().max().item())
+    log("K3", f"forward == plain op within 1e-5*(1+|ref|), backward == its autograd within "
+              f"1e-5|ref| + 1e-6 max|ref|, at {shapes} (pixels at -1, 1 and the 1e-5 switch); "
+              f"max abs err forward {err_fwd:.3e}, backward {err_bwd:.3e}")
+
+    b, h, w = shapes[0]
+    pix = b * h * w
+    # 8 input sets (105 MB of l) overflow the 50 MB L2: from device memory
+    sets = [k3_inputs(b, h, w, device=dev, seed=SEED + 10 + i) for i in range(8)]
+    gs = [torch.randn(b, generator=torch.Generator().manual_seed(i)).to(dev) for i in range(8)]
+    fwd_ms = cuda_time_ms([lambda x=x, l=l: dmol_logprob(x, l) for x, l in sets])
+    fwd_plain_ms = cuda_time_ms([lambda x=x, l=l: dmol_logprob_pixels(x, l) for x, l in sets])
+    bwd_ms = cuda_time_ms([lambda x=x, l=l, g=g: dmol_loss_bwd(x, l, g)
+                           for (x, l), g in zip(sets, gs)])
+    bwd_plain_ms = cuda_time_ms([lambda x=x, l=l, g=g: dmol_loss_bwd_ref(x, l, g)
+                                 for (x, l), g in zip(sets, gs)])
+    # bytes: forward reads x (12 B) and l (400 B) and writes the log-prob
+    # (4 B) a pixel; backward reads x and l and g (4 B an image) and writes
+    # d/dl (400 B). Operations: at least ~1,000 float32 ops a pixel either
+    # way, 0.5 us at 67 TFLOP/s, so bytes bound both.
+    fwd_bytes, bwd_bytes = 416 * pix, 812 * pix + 4 * b
+    fwd_bound = max(fwd_bytes / HBM_BYTES_PER_S, 1000 * pix / FP32_FLOPS_PER_S) * 1e3
+    bwd_bound = max(bwd_bytes / HBM_BYTES_PER_S, 1000 * pix / FP32_FLOPS_PER_S) * 1e3
+    log("K3", f"({b},100,{h},{w}), from device memory: forward {fwd_ms * 1e3:.2f} us (bound "
+              f"{fwd_bound * 1e3:.2f} us), plain {fwd_plain_ms * 1e3:.2f} us; backward "
+              f"{bwd_ms * 1e3:.2f} us (bound {bwd_bound * 1e3:.2f} us), plain closed form "
+              f"{bwd_plain_ms * 1e3:.2f} us")
+    return {"fwd": {"max_abs_err": err_fwd, "ms": fwd_ms, "plain_ms": fwd_plain_ms,
+                    "bound_ms": fwd_bound, "bytes": fwd_bytes},
+            "bwd": {"max_abs_err": err_bwd, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+                    "bound_ms": bwd_bound, "bytes": bwd_bytes},
+            "shape": [b, 100, h, w]}
 
 
 def build_slice(cfg, device, state=None):
@@ -294,7 +492,7 @@ def phase_slice(cfg):
             dscm.forward(obs, do, generator=g)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-        prof = profile_forward(lambda: dscm.forward(obs, do, generator=g))
+        prof = profile_calls(lambda: dscm.forward(obs, do, generator=g), 3, "forward")
     ms = statistics.median(times)
     log("slice", f"DSCM.forward bs {BS}: median {ms:.3f} ms over 20 calls "
                  f"(min {min(times):.3f}, max {max(times):.3f}) = {BS / ms * 1e3:.1f} cf/s")
@@ -303,10 +501,10 @@ def phase_slice(cfg):
             "cf_per_s": BS / ms * 1e3}
 
 
-def profile_forward(fn, calls: int = 3):
-    """Device time by kernel over ``calls`` forwards under torch.profiler, and
-    the device's busy share of the wall time of that window (the profiler's
-    own host cost included)."""
+def profile_calls(fn, calls: int = 3, unit: str = "forward"):
+    """Device time by kernel over ``calls`` calls of ``fn`` under
+    torch.profiler, and the device's busy share of the wall time of that
+    window (the profiler's own host cost included)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -318,29 +516,288 @@ def profile_forward(fn, calls: int = 3):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = {}  # the device's own events: a host op's device time is theirs
+    # the device's own events: a host op's device time is theirs; a user
+    # annotation (AdamW's "Optimizer.step#AdamW.step") spans kernels counted already
+    kernels = {}
     for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0:
+        if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0 \
+                and not getattr(evt, "is_user_annotation", False):
             kernels[evt.key] = (evt.self_device_time_total / calls, evt.count // calls)
     device_us = sum(t for t, _ in kernels.values())
     if device_us == 0:
         log("profile", "torch.profiler recorded no device time: busy share not measured")
-        return {"device_ms_per_forward": None}
-    k1_us = sum(t for k, (t, _) in kernels.items() if "sample_kl" in k)
+        return {f"device_ms_per_{unit}": None}
+
+    def us_of(*names):
+        return sum(t for k, (t, _) in kernels.items() if any(n in k for n in names))
+
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
-    out = {"wall_ms_per_forward": wall_us / calls / 1e3,
-           "device_ms_per_forward": device_us / 1e3,
+    out = {f"wall_ms_per_{unit}": wall_us / calls / 1e3,
+           f"device_ms_per_{unit}": device_us / 1e3,
            "device_busy_share": device_us * calls / wall_us,
-           "kernel_launches_per_forward": sum(c for _, c in kernels.values()),
-           "k1_device_ms_per_forward": k1_us / 1e3,
+           f"kernel_launches_per_{unit}": sum(c for _, c in kernels.values()),
+           f"k1_device_ms_per_{unit}": us_of("sample_kl_kernel") / 1e3,
+           f"k1_bwd_device_ms_per_{unit}": us_of("sample_kl_backward") / 1e3,
+           f"k3_device_ms_per_{unit}": us_of("dmol_forward") / 1e3,
+           f"k3_bwd_device_ms_per_{unit}": us_of("dmol_backward") / 1e3,
            "top": [(k[:80], t / 1e3, c) for k, (t, c) in top]}
-    log("profile", f"per forward under the profiler: wall {out['wall_ms_per_forward']:.2f} ms, "
-                   f"device busy {out['device_ms_per_forward']:.2f} ms "
-                   f"({out['device_busy_share']:.1%}), {out['kernel_launches_per_forward']} "
-                   f"device kernels and copies, K1 {out['k1_device_ms_per_forward'] * 1e3:.1f} us")
+    log("profile", f"per {unit} under the profiler: wall {out[f'wall_ms_per_{unit}']:.2f} ms, "
+                   f"device busy {out[f'device_ms_per_{unit}']:.2f} ms "
+                   f"({out['device_busy_share']:.1%}), {out[f'kernel_launches_per_{unit}']} "
+                   f"device kernels and copies; K1 "
+                   f"{out[f'k1_device_ms_per_{unit}'] * 1e3:.1f} us, K1-bwd "
+                   f"{out[f'k1_bwd_device_ms_per_{unit}'] * 1e3:.1f} us, K3 "
+                   f"{out[f'k3_device_ms_per_{unit}'] * 1e3:.1f} us, K3-bwd "
+                   f"{out[f'k3_bwd_device_ms_per_{unit}'] * 1e3:.1f} us")
     for k, t, c in out["top"]:
         log("profile", f"  {t * 1e3:9.1f} us  x{c:<5d} {k}")
     return out
+
+
+TRAIN_CONFIGS = {"morphomnist": {}, "cmnist_dmol": {"x_like": "diag_dmol"}}
+
+
+def train_config(name, bs=None):
+    """The registry configuration of a train cell at full width and depth."""
+    from causal_gen_tpu_torch.config import get_config
+
+    return get_config(name.split("_")[0], bs=bs or BS, **TRAIN_CONFIGS[name])
+
+
+def synth_batch(cfg, rng):
+    """A loader batch (uint8 NHWC x, pa) of cfg.bs images made from ``rng``:
+    one-hot parents where the configuration has them, else uniform in [-1, 1]."""
+    import numpy as np
+
+    res, n = cfg.input_res, cfg.bs
+    return {"x": rng.integers(0, 256, (n, res, res, cfg.input_channels)).astype(np.uint8),
+            "pa": synth_parents(cfg, rng, n)}
+
+
+def synth_parents(cfg, rng, n):
+    import numpy as np
+
+    cols = []
+    for k in cfg.parents_x:
+        if k in ("digit", "colour"):
+            cols.append(np.eye(10, dtype=np.float32)[rng.integers(0, 10, n)])
+        else:
+            cols.append(rng.uniform(-1, 1, (n, 1)).astype(np.float32))
+    return np.concatenate(cols, axis=1)
+
+
+def reset_counts():
+    from causal_gen_tpu_torch.ops.dmol_loss import dmol_logprob, dmol_loss_bwd
+    from causal_gen_tpu_torch.ops.sample_kl import fused_sample_kl, fused_sample_kl_bwd
+
+    for fn in (fused_sample_kl, fused_sample_kl_bwd, dmol_logprob, dmol_loss_bwd):
+        fn.launches = 0
+
+
+def read_counts():
+    from causal_gen_tpu_torch.ops.dmol_loss import dmol_logprob, dmol_loss_bwd
+    from causal_gen_tpu_torch.ops.sample_kl import fused_sample_kl, fused_sample_kl_bwd
+
+    return {"fused_sample_kl": fused_sample_kl.launches,
+            "fused_sample_kl_bwd": fused_sample_kl_bwd.launches,
+            "dmol_loss": dmol_logprob.launches, "dmol_loss_bwd": dmol_loss_bwd.launches}
+
+
+def expected_counts(cfg, train_steps, eval_batches=0):
+    n_sto = len(k1_res(cfg))
+    dmol = cfg.x_like.endswith("dmol")
+    fwd = (train_steps * cfg.accu_steps + eval_batches)
+    return {"fused_sample_kl": n_sto * fwd, "fused_sample_kl_bwd": n_sto * train_steps * cfg.accu_steps,
+            "dmol_loss": fwd if dmol else 0,
+            "dmol_loss_bwd": train_steps * cfg.accu_steps if dmol else 0}
+
+
+def phase_train(name):
+    """Card against the CPU plain path over three updates and one skipped
+    step; the launch counts around one step; the time of a step."""
+    import numpy as np
+    import torch
+
+    from causal_gen_tpu_torch.models.hvae import HVAE
+    from causal_gen_tpu_torch.train.state import init_train_state
+    from causal_gen_tpu_torch.train.vae_trainer import to_device, train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = train_config(name)
+    cpu_model = HVAE(cfg, device="cpu", generator=torch.Generator().manual_seed(SEED))
+    gpu_model = HVAE(cfg, device="cuda", generator=torch.Generator().manual_seed(SEED + 1))
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    states = {"cpu": init_train_state(cfg, cpu_model), "cuda": init_train_state(cfg, gpu_model)}
+    stochastic = k1_res(cfg)
+    rng = np.random.default_rng(SEED + 3)
+    lrs, rel_errs = [], {}
+    plan = ["update", "update", "skip", "update"]
+    for s, kind in enumerate(plan):
+        batch = synth_batch(cfg, rng)
+        noise = [rng.standard_normal((cfg.bs, cfg.z_dim, r, r)).astype(np.float32)
+                 for r in stochastic]
+        step_cfg = cfg.replace(grad_skip=1e-6) if kind == "skip" else cfg
+        if kind == "update":
+            lrs.append(states["cpu"].optimizer.param_groups[0]["lr"])
+        ms = {}
+        for dev, st in states.items():
+            d = torch.device(dev)
+            m = train_step(step_cfg, st, to_device(batch, d),
+                           noise=[[torch.from_numpy(e).to(d) for e in noise]])
+            ms[dev] = {k: float(v) for k, v in m.items()}
+        if ms["cpu"]["skipped"] != ms["cuda"]["skipped"] or \
+                ms["cuda"]["skipped"] != (1.0 if kind == "skip" else 0.0):
+            raise AssertionError(f"train {name} step {s} ({kind}): skipped card "
+                                 f"{ms['cuda']['skipped']}, CPU {ms['cpu']['skipped']}")
+        for k in ("elbo", "nll", "kl", "grad_norm"):
+            rel = abs(ms["cuda"][k] - ms["cpu"][k]) / abs(ms["cpu"][k])
+            rel_errs[k] = max(rel_errs.get(k, 0.0), rel)
+            if not rel <= 1e-4:
+                raise AssertionError(f"train {name} step {s}: {k} card {ms['cuda'][k]!r} vs "
+                                     f"CPU {ms['cpu'][k]!r} (rel {rel:.3e})")
+    cs, gs = states["cpu"], states["cuda"]
+    counters = [(st.step, st.skipped, st.ema_updates) for st in (cs, gs)]
+    if counters[0] != counters[1] or counters[0] != (3, 1, 3):
+        raise AssertionError(f"train {name}: (step, skipped, ema_updates) CPU {counters[0]}, "
+                             f"card {counters[1]}, expected (3, 1, 3)")
+    # Adam with beta1 == beta2 moves an element by at most lr a step, so an
+    # element whose tiny gradient has another sign on the card than on the
+    # CPU ends at most 2 sum(lr) apart; every other element agrees to ~1e-6
+    bound = 2 * sum(lrs) + 1e-6
+    worst = {}
+    for what, a, b in (("params", cs.model, gs.model), ("ema", cs.ema, gs.ema)):
+        ref, got = a.state_dict(), b.state_dict()
+        errs = {k: (got[k].cpu() - ref[k]).abs() for k in ref}
+        key = max(errs, key=lambda k: errs[k].max())
+        n_over = sum(int((e > 1e-5).sum()) for e in errs.values())
+        worst[what] = {"max_abs_err": errs[key].max().item(), "at": key, "n_over_1e-5": n_over,
+                       "n": sum(e.numel() for e in errs.values())}
+        if errs[key].max().item() > bound:
+            raise AssertionError(f"train {name}: {what} card vs CPU max err "
+                                 f"{errs[key].max().item():.3e} at {key} > {bound:.3e}")
+    log("train", f"{name} bs {cfg.bs}: 3 updates + 1 forced skip, card == CPU plain path "
+                 f"(TF32 off): metrics max rel err " + ", ".join(f"{k} {v:.2e}" for k, v in
+                                                                rel_errs.items())
+        + "; " + "; ".join(f"{w} max abs err {v['max_abs_err']:.3e} ({v['at']}), "
+                           f"{v['n_over_1e-5']} of {v['n']} over 1e-5" for w, v in worst.items())
+        + f"; bound 2 sum(lr) = {bound:.2e}")
+
+    # the main path's kernels, counted around one step (the generator's path:
+    # K1 draws eps in the kernel)
+    gen = torch.Generator().manual_seed(SEED + 8)
+    batch = to_device(synth_batch(cfg, rng), torch.device("cuda"))
+    reset_counts()
+    train_step(cfg, gs, batch, generator=gen)
+    torch.cuda.synchronize()
+    counts, want = read_counts(), expected_counts(cfg, 1)
+    if counts != want:
+        raise AssertionError(f"train {name}: launches around one step {counts}, expected {want}")
+    log("train", f"{name}: launches around one step {counts}")
+
+    out = {"rel_err": rel_errs, "worst": worst, "bound": bound, "launches_per_step": counts,
+           "step_ms": {}}
+    for bs in ((BS, BENCH_BS) if name == "morphomnist" else (BS,)):
+        c = train_config(name, bs=bs)
+        if bs == BS:
+            st, b = gs, batch
+        else:
+            st = init_train_state(c, HVAE(c, device="cuda",
+                                          generator=torch.Generator().manual_seed(SEED)))
+            b = to_device(synth_batch(c, rng), torch.device("cuda"))
+        for _ in range(3):
+            train_step(c, st, b, generator=gen)
+        times = []
+        for _ in range(15):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_step(c, st, b, generator=gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        med = statistics.median(times)
+        out["step_ms"][bs] = {"median": med, "all": times, "images_per_s": bs / med * 1e3}
+        log("train", f"{name} bs {bs}: train step median {med:.3f} ms over 15 (min "
+                     f"{min(times):.3f}, max {max(times):.3f}) = {bs / med * 1e3:.1f} images/s")
+    out["profile"] = profile_calls(lambda: train_step(cfg, gs, batch, generator=gen), 3, "step")
+    return out
+
+
+def synth_datasets(cfg, n_train, n_valid):
+    """Train and valid ArrayDatasets of 28x28 uint8 images and parents made
+    from the seed, with the augmentations of the Morpho-/Colour-MNIST datasets."""
+    import numpy as np
+
+    from causal_gen_tpu_torch.data.datasets import ArrayDataset
+
+    rng = np.random.default_rng(SEED + 4)
+
+    def build(n, aug):
+        pa = synth_parents(cfg, rng, n)
+        return ArrayDataset(
+            images=rng.integers(0, 256, (n, 28, 28, cfg.input_channels)).astype(np.uint8),
+            attrs={"pa": pa}, columns=("pa",), aug=aug)
+
+    res = (cfg.input_res, cfg.input_res)
+    return {"train": build(n_train, ("random_crop_flip", res, (cfg.pad, cfg.pad), 0.0)),
+            "valid": build(n_valid, ("center_pad", 2))}
+
+
+def phase_entry(name):
+    """train() through cli.main: 2 epochs of 3 batches, one evaluation, a
+    checkpoint written and read back."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from causal_gen_tpu_torch.cli import main as cli
+    from causal_gen_tpu_torch.models.hvae import HVAE
+    from causal_gen_tpu_torch.train.checkpoint import load_checkpoint, restore_train_state
+    from causal_gen_tpu_torch.train.vae_trainer import eval_step, to_device
+
+    cfg = train_config(name)
+    n_batches = 3
+    datasets = synth_datasets(cfg, n_batches * BS, 2 * BS)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_entry_") as save_dir:
+        argv = ["--hps", cfg.name, "--device", "cuda", "--epochs", "2", "--eval_freq", "2",
+                "--bs", str(BS), "--max_batches", str(n_batches), "--save_dir", save_dir]
+        if cfg.x_like != "diag_dgauss":
+            argv += ["--x_like", cfg.x_like]
+        reset_counts()
+        t0 = time.perf_counter()
+        state, history = cli.main(argv, datasets=datasets)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts, want = read_counts(), expected_counts(cfg, 2 * n_batches, 2)
+        if counts != want:
+            raise AssertionError(f"entry {name}: launches {counts}, expected {want}")
+        if not all(np.isfinite(history[k]) for k in ("train_elbo", "valid_elbo", "valid_nll")):
+            raise AssertionError(f"entry {name}: history not finite: {history}")
+        saved_cfg, payload, extra = load_checkpoint(os.path.join(save_dir, "checkpoint"))
+        if saved_cfg != cfg.replace(epochs=2, eval_freq=2) or extra.get("epoch") != 2:
+            raise AssertionError(f"entry {name}: checkpoint config or extras differ: {extra}")
+        restored = restore_train_state(saved_cfg, HVAE(saved_cfg, device="cuda"), payload)
+        for a, b in ((state.model, restored.model), (state.ema, restored.ema)):
+            for k, v in a.state_dict().items():
+                if not torch.equal(v, b.state_dict()[k]):
+                    raise AssertionError(f"entry {name}: checkpoint round trip changed {k}")
+        if (restored.step, restored.skipped, restored.ema_updates) != (
+                state.step, state.skipped, state.ema_updates):
+            raise AssertionError(f"entry {name}: checkpoint round trip changed the counters")
+        batch = to_device(datasets["valid"].batch(np.arange(BS)), torch.device("cuda"))
+        noise = [[torch.randn((BS, cfg.z_dim, r, r), generator=torch.Generator().manual_seed(i))
+                  .cuda() for i, r in enumerate(k1_res(cfg))]]
+        e1 = eval_step(cfg, state.ema, batch, noise=noise)
+        e2 = eval_step(cfg, restored.ema, batch, noise=noise)
+        if any(e1[k].item() != e2[k].item() for k in e1):
+            raise AssertionError(f"entry {name}: restored EMA evaluates differently")
+    log("entry", f"{name}: cli.main -> train(), 2 epochs x {n_batches} batches of {BS} + 1 eval "
+                 f"in {secs:.1f} s; step {state.step}, skipped {state.skipped}; valid elbo "
+                 f"{history['valid_elbo']:.4f}; checkpoint round trip exact; launches {counts}")
+    return {"seconds": secs, "launches": counts, "history": history, "step": state.step,
+            "skipped": state.skipped}
+
+
 
 
 def main() -> int:
@@ -360,23 +817,54 @@ def main() -> int:
     cfg = get_config("morphomnist", bs=BS)
     build_s = phase_build()
     k1 = phase_k1(cfg)
+    k1b = phase_k1_bwd(cfg)
+    k3 = phase_k3()
     sl = phase_slice(cfg)
-    kernels = [{
-        "name": "fused_sample_kl", "route": "cuda",
-        "source": "causal_gen_tpu_torch/csrc/sample_kl.cu",
-        "replaces": "causal_gen_tpu/ops/pallas_kernels.py:109",
-        "launches": sl["launches"], "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-        "bound_by": "bytes", "library_ms": None, "ms_inputs_in_l2": k1["ms_l2"],
-        "ms_philox": k1["ms_philox"], "bound_ms_philox": k1["bound_ms_philox"],
-        "held_by": "phase K1 (injected eps at every slice shape + ragged; Philox statistics)",
-    }]
-    record = {"device": name, "nvidia_smi": smi, "build_s": build_s, "k1": k1, "slice": sl,
-              "kernels": kernels, "total_s": time.perf_counter() - t_start}
+    train = {n: phase_train(n) for n in TRAIN_CONFIGS}
+    entry = {n: phase_entry(n) for n in TRAIN_CONFIGS}
+    # launches on the main paths: DSCM.forward (the serving slice) and train()
+    # through cli.main on each configuration, each counted from 0
+    by_path = {"DSCM.forward": {"fused_sample_kl": sl["launches"]}}
+    by_path.update({f"cli.main train {n}": e["launches"] for n, e in entry.items()})
+
+    def launches(kernel):
+        return sum(p.get(kernel, 0) for p in by_path.values())
+
+    def row(kernel, source, replaces, held_by, m, **extra):
+        return {"name": kernel, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches(kernel), "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": "bytes",
+                "library_ms": None, "held_by": held_by,
+                "launches_by_path": {p: c.get(kernel, 0) for p, c in by_path.items()}, **extra}
+
+    kernels = [
+        row("fused_sample_kl", "causal_gen_tpu_torch/csrc/sample_kl.cu",
+            "causal_gen_tpu/ops/pallas_kernels.py:109",
+            "phase K1 (injected eps at every slice shape + ragged; Philox statistics)", k1,
+            ms_inputs_in_l2=k1["ms_l2"], ms_philox=k1["ms_philox"],
+            bound_ms_philox=k1["bound_ms_philox"]),
+        row("fused_sample_kl_bwd", "causal_gen_tpu_torch/csrc/sample_kl.cu",
+            "causal_gen_tpu/ops/pallas_kernels.py:136",
+            "phase K1-bwd (autograd of the plain version, injected eps and Philox, every "
+            "slice shape + ragged)", k1b),
+        row("dmol_loss", "causal_gen_tpu_torch/csrc/dmol_loss.cu",
+            "causal_gen_tpu/ops/pallas_kernels.py:230",
+            "phase K3 (plain op at (32,100,32,32) and a ragged size with edge and switch "
+            "pixels)", k3["fwd"]),
+        row("dmol_loss_bwd", "causal_gen_tpu_torch/csrc/dmol_loss.cu",
+            "causal_gen_tpu/ops/pallas_kernels.py:262",
+            "phase K3 (autograd of the plain op, same inputs)", k3["bwd"]),
+    ]
+    missing = [k["name"] for k in kernels if k["launches"] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on a main path: {missing}")
+    record = {"device": name, "nvidia_smi": smi, "build_s": build_s, "k1": k1, "k1_bwd": k1b,
+              "k3": k3, "slice": sl, "train": train, "entry": entry, "kernels": kernels,
+              "total_s": time.perf_counter() - t_start}
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
-            json.dump(record, f, indent=1)
+            json.dump(record, f, indent=1, default=str)
     log("done", f"all phases passed in {record['total_s']:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,9 +1,12 @@
 """Import hygiene of the port: ``causal_gen_tpu_torch``, ``chip_smoke.py`` and
-the card's tests must start on a machine without JAX, and the K1 wrapper must not fall back to
-its plain version when the build or the launch fails."""
+the card's tests must start on a machine without JAX, and the kernel wrappers
+(K1, K3) must not fall back to their plain versions when a build or a launch
+fails."""
 
 import ast
 import pathlib
+import subprocess
+import sys
 
 import pytest
 
@@ -14,7 +17,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "optax", "causal_gen_tpu")
 
 def _port_sources():
     files = sorted(p for p in PKG.rglob("*.py") if "_build" not in p.parts)
-    return files + [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_sample_kl_gpu.py"]
+    return files + [ROOT / "chip_smoke.py"] + sorted((ROOT / "tests").glob("test_torch_*_gpu.py"))
 
 
 def _imported_modules(tree):
@@ -35,10 +38,35 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
-def test_sample_kl_has_no_fallback():
-    tree = ast.parse((PKG / "ops" / "sample_kl.py").read_text())
-    handlers = [n for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)]
-    assert not handlers, "ops/sample_kl.py must not catch errors of the kernel's build or launch"
+@pytest.mark.parametrize("name", ["sample_kl", "dmol_loss", "build"])
+def test_kernel_wrappers_have_no_fallback(name):
+    tree = ast.parse((PKG / "ops" / f"{name}.py").read_text())
+    handlers = [n for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)
+                and not (isinstance(n.type, ast.Attribute) and n.type.attr == "TimeoutExpired")]
+    assert not handlers, f"ops/{name}.py must not catch errors of a kernel's build or launch"
+
+
+def test_every_module_imports_without_jax():
+    """Import every module of the package in a fresh interpreter that refuses
+    JAX and the JAX package."""
+    modules = sorted(".".join(p.relative_to(ROOT).with_suffix("").parts)
+                     for p in PKG.rglob("*.py") if "_build" not in p.parts)
+    modules = [m[: -len(".__init__")] if m.endswith(".__init__") else m for m in modules]
+    code = (
+        "import importlib, sys\n"
+        "class Refuse:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        f"        if name.split('.')[0] in {FORBIDDEN!r}:\n"
+        "            raise ImportError('refused: ' + name)\n"
+        "sys.meta_path.insert(0, Refuse())\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(len(sys.modules))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert len(modules) >= 25
 
 
 def test_no_binaries_and_small_files():

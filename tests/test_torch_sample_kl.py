@@ -4,8 +4,9 @@ JAX package and the reference goldens.
 On the CPU the port's wrapper runs the kernel's plain version; the JAX kernel
 runs through the TPU interpreter, as tests/test_pallas.py runs it. The
 interpreter's in-kernel PRNG gives a constant eps, so eps is recovered from
-the JAX sample and fed to the port. test_torch_sample_kl_gpu.py holds the
-CUDA kernel against the plain version on the card.
+the JAX sample and fed to the port. The backward's plain version is held
+against the JAX VJP ``_fskl_bwd``, which is pure jnp. test_torch_sample_kl_gpu.py
+holds the CUDA kernels against the plain versions on the card.
 """
 
 import os
@@ -18,7 +19,12 @@ from jax.experimental.pallas import tpu as pltpu
 
 from causal_gen_tpu_torch.models.likelihoods import DGaussNet
 from causal_gen_tpu_torch.ops.distributions import discretized_gaussian_nll, gaussian_kl
-from causal_gen_tpu_torch.ops.sample_kl import fused_sample_kl, fused_sample_kl_ref
+from causal_gen_tpu_torch.ops.sample_kl import (
+    fused_sample_kl,
+    fused_sample_kl_bwd,
+    fused_sample_kl_bwd_ref,
+    fused_sample_kl_ref,
+)
 
 torch.set_num_threads(1)
 
@@ -168,3 +174,43 @@ def test_dgauss_nll_tail_follows_tanh_ulps():
     jax_err = np.abs(np.asarray(jnp.tanh(jnp.asarray(v))) - np.tanh(v.astype(np.float64))).max()
     torch_err = np.abs(torch.tanh(torch.from_numpy(v)).numpy() - np.tanh(v.astype(np.float64))).max()
     assert torch_err <= ulp < 2 * ulp < jax_err
+
+
+@pytest.mark.parametrize("shape", [(4, 8, 8, 16), (7, 33)])
+def test_bwd_ref_matches_jax_vjp(shape):
+    """The backward's plain version against ``_fskl_bwd`` (pure jnp), called
+    directly on the same residuals and cotangents."""
+    from causal_gen_tpu.ops.pallas_kernels import _fskl_bwd
+
+    ql, qs, pl, ps = _inputs(shape, seed=4)
+    rng = np.random.default_rng(5)
+    z, gz, gkl = (rng.normal(0, 1, shape).astype(np.float32) for _ in range(3))
+    ref = _fskl_bwd(False, tuple(jnp.asarray(a) for a in (ql, qs, pl, ps, z)),
+                    (jnp.asarray(gz), jnp.asarray(gkl)))[1:]
+    got = fused_sample_kl_bwd_ref(*(torch.from_numpy(a) for a in (ql, qs, pl, ps, z, gz, gkl)))
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-6, atol=1e-6)
+
+
+def test_cpu_bwd_wrapper_and_autograd():
+    """On the CPU, ``fused_sample_kl_bwd`` is the plain version (a missing
+    cotangent counts as zero), and it agrees with autograd through the
+    forward's plain version, the spatial KL sum's broadcast cotangent
+    included."""
+    args = [torch.from_numpy(a).requires_grad_() for a in _inputs((2, 16, 4, 4), seed=6)]
+    eps = torch.randn(2, 16, 4, 4, generator=torch.Generator().manual_seed(1))
+    w = torch.randn(2, 16, 4, 4, generator=torch.Generator().manual_seed(2))
+    v = torch.randn(2, 16, generator=torch.Generator().manual_seed(3))
+    z, kl = fused_sample_kl(*args, eps=eps)
+    auto = torch.autograd.grad((z * w).sum() + (kl.sum(dim=(2, 3)) * v).sum(), args)
+    gkl = v[:, :, None, None].expand(2, 16, 4, 4)
+    detached = [a.detach() for a in args]
+    got = fused_sample_kl_bwd(*detached, z.detach(), w, gkl)
+    for g, r in zip(got, auto):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=1e-5, atol=1e-6)
+    for g, r in zip(got, fused_sample_kl_bwd_ref(*detached, z.detach(), w, gkl.contiguous())):
+        assert torch.equal(g, r)
+    only_kl = fused_sample_kl_bwd(*detached, z.detach(), None, gkl)
+    zero = torch.zeros(())
+    for g, r in zip(only_kl, fused_sample_kl_bwd_ref(*detached, z.detach(), zero, gkl)):
+        assert torch.equal(g, r)

@@ -1,4 +1,5 @@
-"""K1 on the card: the CUDA kernel against its plain version.
+"""K1 on the card: the CUDA kernels, forward and backward, against their
+plain versions.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no JAX, so it runs on a machine with a card and no JAX; tests/conftest.py
@@ -11,7 +12,11 @@ import numpy as np
 import pytest
 import torch
 
-from causal_gen_tpu_torch.ops.sample_kl import fused_sample_kl, fused_sample_kl_ref
+from causal_gen_tpu_torch.ops.sample_kl import (
+    fused_sample_kl,
+    fused_sample_kl_bwd,
+    fused_sample_kl_ref,
+)
 
 torch.set_num_threads(1)
 
@@ -52,12 +57,54 @@ def test_kernel_philox_stream(cuda):
 
 @pytest.mark.gpu
 def test_kernel_rejects_bad_inputs_and_backward(cuda):
+    """Bad inputs raise; the backward launches its kernel (it raised before
+    the backward was ported)."""
     a = torch.zeros(4, 8, device=cuda)
     with pytest.raises(ValueError):
         fused_sample_kl(a.t(), a.t(), a.t(), a.t())
     with pytest.raises(ValueError):
         fused_sample_kl(a, a, a, a.double())
+    with pytest.raises(ValueError):
+        fused_sample_kl_bwd(a, a, a, a, a, a.double(), None)
     q = torch.zeros(4, 8, device=cuda, requires_grad=True)
     z, kl = fused_sample_kl(q, a, a, a)
-    with pytest.raises(NotImplementedError):
-        (z.sum() + kl.sum()).backward()
+    fused_sample_kl_bwd.launches = 0
+    (z.sum() + kl.sum()).backward()
+    assert fused_sample_kl_bwd.launches == 1
+    torch.cuda.synchronize()
+    assert torch.equal(q.grad, torch.ones_like(q))  # gz = 1, and d kl / d q_loc = 0 here
+
+
+def _grads(fn, args, eps, w, v):
+    """Cotangents of the inputs under (z * w).sum() + (kl summed over space * v).sum(),
+    so that d/dkl reaches the backward as the stride-0 broadcast the HVAE gives."""
+    leaves = [a.clone().requires_grad_() for a in args]
+    z, kl = fn(*leaves, eps)
+    red = kl.sum(dim=tuple(range(2, kl.dim()))) if kl.dim() > 2 else kl
+    loss = (z * w).sum() + (red * v).sum()
+    return torch.autograd.grad(loss, leaves)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(32, 16, 32, 32), (32, 16, 1, 1), (1000003,)])
+@pytest.mark.parametrize("philox", [False, True])
+def test_backward_matches_autograd_of_plain_version(cuda, shape, philox):
+    """The backward kernel against autograd through fused_sample_kl_ref given
+    the same eps (recovered from z on the Philox path): 1e-5 (1 + |ref|)."""
+    args = [torch.from_numpy(a).to(cuda) for a in _inputs(shape, seed=4)]
+    g = torch.Generator().manual_seed(1)
+    w = torch.randn(shape, generator=g).to(cuda)
+    v = torch.randn(shape[:2] if len(shape) > 2 else shape, generator=g).to(cuda)
+    if philox:
+        z, _ = fused_sample_kl(*args, generator=torch.Generator().manual_seed(3))
+        eps = (z - args[0]) / torch.exp(args[1])
+        kernel = _grads(lambda *a: fused_sample_kl(*a[:4], generator=torch.Generator()
+                                                   .manual_seed(3)), args, None, w, v)
+    else:
+        eps = torch.randn(shape, generator=g).to(cuda)
+        kernel = _grads(lambda *a: fused_sample_kl(*a[:4], eps=a[4]), args, eps, w, v)
+    plain = _grads(lambda *a: fused_sample_kl_ref(*a[:4], a[4]), args, eps, w, v)
+    torch.cuda.synchronize()
+    for got, ref in zip(kernel, plain):
+        assert torch.all((got - ref).abs() <= 1e-5 * (1 + ref.abs())), \
+            (got - ref).abs().max().item()

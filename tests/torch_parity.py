@@ -15,9 +15,16 @@ from typing import Any, Dict, List
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
+from causal_gen_tpu.models.hvae import HVAE as JHVAE
+from causal_gen_tpu.train.state import init_train_state as jinit_state
+from causal_gen_tpu.train.vae_trainer import _make_step_body, init_model_params
 from causal_gen_tpu_torch.convert import params_from_jax
+from causal_gen_tpu_torch.models.hvae import HVAE, plan_decoder_blocks
+from causal_gen_tpu_torch.train.state import init_train_state
+from causal_gen_tpu_torch.train.vae_trainer import train_step
 
 
 def to_numpy(tree: Any) -> Any:
@@ -103,22 +110,111 @@ def torch_batch(b: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return {k: nchw(v) if k == "x" else torch.from_numpy(v) for k, v in b.items()}
 
 
+def run_steps_against_jax(jcfg, tcfg, channels, context_dim, monkeypatch, n_steps=4,
+                          nan_step=2):
+    """``n_steps`` train steps of both packages from converted parameters, on
+    the same uint8 batches (accu_steps microbatches each) and noise. Step
+    ``nan_step`` has a NaN parent, so both skip it. Returns the per-step
+    metrics of both and the two final states.
+
+    The JAX step is jitted: its patched sample_gaussian draws once, at trace
+    time, and the compiled step reuses those draws for every microbatch and
+    every step, so the port is fed the same draws each time."""
+    jvae = JHVAE(cfg=jcfg)
+    params = init_model_params(jcfg, jvae, jax.random.PRNGKey(0))
+    jstate = jinit_state(jcfg, params)
+    tvae = HVAE(tcfg, device="cpu")
+    load_jax_params(tvae, params)
+    tstate = init_train_state(tcfg, tvae)
+    rec = patch_jax_noise(monkeypatch, seed=5)
+    jstep = jax.jit(_make_step_body(jcfg, jvae))
+    n_stochastic = sum(1 for r, _ in plan_decoder_blocks(tcfg) if r <= tcfg.z_max_res)
+    accu, res = jcfg.accu_steps, jcfg.input_res
+    micro = jcfg.bs // accu
+    rng = np.random.default_rng(0)
+    metrics = []
+    for s in range(n_steps):
+        x = rng.integers(0, 256, (accu, micro, res, res, channels)).astype(np.uint8)
+        pa = rng.uniform(-1, 1, (accu, micro, context_dim)).astype(np.float32)
+        if s == nan_step:
+            pa[0, 0, 0] = np.nan
+        jstate, jm = jstep(jstate, {"x": jnp.asarray(x), "pa": jnp.asarray(pa)},
+                           jax.random.PRNGKey(s))
+        assert len(rec.draws) == n_stochastic  # one trace, one draw per stochastic block
+        noise = [rec.torch_noise() for _ in range(accu)]
+        batch = {"x": torch.from_numpy(x.reshape(accu * micro, res, res, channels))
+                 .permute(0, 3, 1, 2).contiguous(),
+                 "pa": torch.from_numpy(pa.reshape(accu * micro, context_dim))}
+        tm = train_step(tcfg, tstate, batch, noise=noise)
+        metrics.append(({k: float(v) for k, v in jax.device_get(jm).items()},
+                        {k: float(v) for k, v in tm.items()}))
+    return metrics, jstate, tstate
+
+
+def assert_states_match(metrics, jstate, tstate, atol=1e-5):
+    for s, (jm, tm) in enumerate(metrics):
+        assert jm["skipped"] == tm["skipped"], s
+        for k in ("elbo", "nll", "kl", "grad_norm"):
+            if np.isnan(jm[k]):
+                assert np.isnan(tm[k]), (s, k)
+            else:
+                assert tm[k] == pytest.approx(jm[k], rel=1e-4), (s, k, tm[k], jm[k])
+    assert (tstate.step, tstate.skipped, tstate.ema_updates) == (
+        int(jstate.step), int(jstate.skipped), int(jstate.ema_updates))
+    for tree, module in ((jstate.params, tstate.model), (jstate.ema_params, tstate.ema)):
+        ref = params_from_jax(to_numpy(tree))
+        got = module.state_dict()
+        assert sorted(ref) == sorted(got)
+        errs = {k: (got[k] - ref[k]).abs() for k in ref}
+        worst_key = max(errs, key=lambda k: errs[k].max())
+        n_over = sum(int((e > atol).sum()) for e in errs.values())
+        assert n_over == 0, (f"{n_over} elements differ by more than {atol}; worst "
+                             f"{errs[worst_key].max().item():.3e} in {worst_key}")
+
+
 def patch_jax_nll_with_port(monkeypatch) -> None:
-    """Have the JAX DGaussNet evaluate its NLL with the port's function.
+    """Have the JAX DGaussNet evaluate its NLL, and the NLL's gradient, with
+    the port's function.
 
     XLA's float32 tanh on the CPU is off by several ulp near 1, PyTorch's by
     at most one, and the discretized-Gaussian NLL of a pixel in the far tail
     is a difference of two CDFs near 1 that carries only a few ulp: there the
     two packages differ by up to several nats per pixel. The tests that
-    compare NLL-dependent outputs (ELBO, DSCM loss) therefore feed the JAX
-    model's (loc, logscale) through one NLL evaluation; the mismatch itself is
+    compare NLL-dependent outputs (ELBO, DSCM loss, train steps) therefore
+    feed the JAX model's (loc, logscale) through one NLL evaluation, and its
+    cotangent through that evaluation's autograd; the mismatch itself is
     shown by test_torch_sample_kl.py::test_dgauss_nll_tail_follows_tanh_ulps.
     """
     import causal_gen_tpu.models.likelihoods as jax_lik
     from causal_gen_tpu_torch.ops.distributions import discretized_gaussian_nll
 
-    def nll(loc, logscale, x):
-        args = (torch.from_numpy(np.array(a, np.float32)) for a in (loc, logscale, x))
-        return jnp.asarray(discretized_gaussian_nll(*args).numpy())
+    def tensors(*arrays):
+        return [torch.from_numpy(np.array(a, np.float32)) for a in arrays]
 
+    def value(loc, logscale, x):
+        with torch.no_grad():
+            return discretized_gaussian_nll(*tensors(loc, logscale, x)).numpy()
+
+    def cotangents(loc, logscale, x, g):
+        loc, logscale, x, g = tensors(loc, logscale, x, g)
+        loc.requires_grad_()
+        logscale.requires_grad_()
+        out = discretized_gaussian_nll(loc, logscale, x)
+        return tuple(t.numpy() for t in torch.autograd.grad(out, (loc, logscale), g))
+
+    @jax.custom_vjp
+    def nll(loc, logscale, x):
+        return jax.pure_callback(value, jax.ShapeDtypeStruct(loc.shape[:1], jnp.float32),
+                                 loc, logscale, x)
+
+    def nll_fwd(loc, logscale, x):
+        return nll(loc, logscale, x), (loc, logscale, x)
+
+    def nll_bwd(res, g):
+        loc, logscale, x = res
+        shapes = tuple(jax.ShapeDtypeStruct(a.shape, jnp.float32) for a in (loc, logscale))
+        d_loc, d_logscale = jax.pure_callback(cotangents, shapes, loc, logscale, x, g)
+        return d_loc, d_logscale, jnp.zeros_like(x)
+
+    nll.defvjp(nll_fwd, nll_bwd)
     monkeypatch.setattr(jax_lik, "discretized_gaussian_nll", nll)
