@@ -1,8 +1,9 @@
 """Hierarchical VAE image mechanism (PyTorch, NCHW, unrolled decoder).
 
 Counterpart of ``causal_gen_tpu/models/hvae.py`` (reference src/vae.py:137-523)
-with the mechanism API ``forward`` (the ELBO), ``abduct`` and
-``forward_latents``.
+with the mechanism API ``forward`` (the ELBO), ``sample``, ``abduct`` and
+``forward_latents``, each at an optional temperature ``t`` that scales every
+prior and posterior scale (and the head's, where JAX applies it).
 
 Every posterior draw goes through ``ops.sample_kl.fused_sample_kl`` (K1): the
 CUDA kernels on the card, forward and backward, its plain version on the CPU.
@@ -11,9 +12,12 @@ differ only in their random stream, so the port has the one path. Training
 differentiates ``forward`` (the ELBO, with the free-bits branch) through
 every block and through K1; a DMoL head's NLL goes through K3.
 
-Random draws take ``noise``, an iterator of standard-normal tensors consumed
-in draw order (posterior draws in block order, then any prior draws), or
-else a ``torch.Generator``. Tests feed the JAX side's noise through it.
+Random draws take ``noise``, an iterator of draws consumed in order: the
+standard normals of the posterior or prior draws in block order, then, for
+``sample(return_loc=False)``, the head's own (a standard normal for DGaussNet,
+the uniforms (u_mix, u) for DmolNet). Else they come from a
+``torch.Generator``, a CPU one on any device. Tests feed the JAX side's noise
+through it.
 
 Not ported, and refused by ``HVAE``: ``cond_prior``, ``q_correction``, 3-D
 volumes and bf16 convs (later slices); the JAX ``stage_scan`` layout is a
@@ -84,14 +88,22 @@ class DecoderBlock(nn.Module):
     def init_extra_(self, generator: Optional[torch.Generator]) -> None:
         lecun_normal_(self.z_proj.weight, generator, self.z_proj_scale)
 
-    def forward_prior(self, z: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    def forward_prior(self, z: Tensor, t: Optional[float] = None
+                      ) -> Tuple[Tensor, Tensor, Tensor]:
         z = self.prior(z)
         zd = self.z_dim
-        return z[:, :zd], z[:, zd: 2 * zd], z[:, 2 * zd:]
+        p_logscale = z[:, zd: 2 * zd]
+        if t is not None:
+            p_logscale = p_logscale + math.log(t)
+        return z[:, :zd], p_logscale, z[:, 2 * zd:]
 
-    def forward_posterior(self, z: Tensor, x: Tensor, pa: Tensor) -> Tuple[Tensor, Tensor]:
+    def forward_posterior(self, z: Tensor, x: Tensor, pa: Tensor, t: Optional[float] = None
+                          ) -> Tuple[Tensor, Tensor]:
         out = self.posterior(torch.cat([z, _bcast_pa(pa, z), x], dim=1))
-        return out[:, : self.z_dim], out[:, self.z_dim:]
+        q_logscale = out[:, self.z_dim:]
+        if t is not None:
+            q_logscale = q_logscale + math.log(t)
+        return out[:, : self.z_dim], q_logscale
 
 
 def plan_decoder_blocks(cfg: Config) -> List[Tuple[int, int]]:
@@ -139,11 +151,12 @@ class Decoder(nn.Module):
     def forward(self, parents: Tensor, acts: Optional[Dict[int, Tensor]] = None,
                 abduct: bool = False, latents: Optional[Sequence[Optional[Tensor]]] = None,
                 noise: Noise = None, generator: Optional[torch.Generator] = None,
-                ) -> Tuple[Tensor, List[Dict[str, Any]]]:
+                t: Optional[float] = None) -> Tuple[Tensor, List[Dict[str, Any]]]:
         """Runs every block (reference vae.py:241-300). With ``acts`` each
         stochastic block draws z ~ q(z | z_<i, x, pa) and reports its KL
         summed over space, (B, z_dim), and with ``abduct`` also z. Without
         ``acts`` a block takes its entry of ``latents`` or draws from the prior.
+        ``t`` adds log t to every prior and posterior log-scale.
         """
         bs = parents.shape[0]
         n = len(self._blocks)
@@ -157,10 +170,10 @@ class Decoder(nn.Module):
                 h = self._up(h, res)
             # the prior depends on the previous prior latent only
             p_input = self._up(z, res) if z.shape[2] < res else z
-            p_loc, p_logscale, p_feat = block.forward_prior(p_input)
+            p_loc, p_logscale, p_feat = block.forward_prior(p_input, t)
             if block.stochastic:
                 if acts is not None:
-                    q_loc, q_logscale = block.forward_posterior(h, acts[res], pa)
+                    q_loc, q_logscale = block.forward_posterior(h, acts[res], pa, t)
                     z, kl = fused_sample_kl(
                         q_loc.contiguous(), q_logscale.contiguous(), p_loc.contiguous(),
                         p_logscale.contiguous(), eps=_next(noise), generator=generator)
@@ -228,19 +241,31 @@ class HVAE(nn.Module):
         nll_pp = torch.mean(nll_pp)
         return dict(elbo=nll_pp + beta * kl_pp, nll=nll_pp, kl=kl_pp)
 
+    def sample(self, parents: Tensor, return_loc: bool = True, t: Optional[float] = None,
+               noise: Noise = None, generator: Optional[torch.Generator] = None,
+               ) -> Tuple[Tensor, Tensor]:
+        """Images from the prior (causal_gen_tpu/models/hvae.py:628-632): every stochastic
+        block draws z from its prior at temperature ``t``, then the head gives
+        its loc (``return_loc``) or a sample at ``t``, with the scale."""
+        h, _ = self.decoder(parents, noise=noise, generator=generator, t=t)
+        draw = None if return_loc else _next(noise)
+        return self.likelihood.sample(h, return_loc, t, draw, generator)
+
     def abduct(self, x: Tensor, parents: Tensor, noise: Noise = None,
-               generator: Optional[torch.Generator] = None) -> List[Tensor]:
-        """Latents z ~ q(z | x, pa), one per stochastic block (reference
-        vae.py:466-516 without cond_prior)."""
+               generator: Optional[torch.Generator] = None, t: Optional[float] = None,
+               ) -> List[Tensor]:
+        """Latents z ~ q(z | x, pa), one per stochastic block, at temperature
+        ``t`` (reference vae.py:466-516 without cond_prior)."""
         acts = self.encoder(x)
         _, q_stats = self.decoder(parents, acts=acts, abduct=True, noise=noise,
-                                  generator=generator)
+                                  generator=generator, t=t)
         return [s["z"] for s in q_stats]
 
     def forward_latents(self, latents: Sequence[Optional[Tensor]], parents: Tensor,
                         noise: Noise = None, generator: Optional[torch.Generator] = None,
-                        ) -> Tuple[Tensor, Tensor]:
-        """Decode given latents (prior draws where one is None) to the
-        likelihood's (loc, scale)."""
-        h, _ = self.decoder(parents, latents=latents, noise=noise, generator=generator)
-        return self.likelihood.sample(h)
+                        t: Optional[float] = None) -> Tuple[Tensor, Tensor]:
+        """Decode given latents (prior draws at temperature ``t`` where one is
+        None) to the likelihood's (loc, scale); the head takes ``t`` in its
+        loc mode, where it does not apply it (causal_gen_tpu/models/hvae.py:667-674)."""
+        h, _ = self.decoder(parents, latents=latents, noise=noise, generator=generator, t=t)
+        return self.likelihood.sample(h, True, t)

@@ -38,9 +38,18 @@ def sample_gaussian(
     """Reparameterized Gaussian sample (reference vae.py:28-30). ``noise`` is
     the standard-normal draw; without it one is drawn from ``generator``."""
     if noise is None:
-        noise = torch.randn(loc.shape, generator=generator, dtype=loc.dtype,
-                            device=loc.device)
+        noise = draw(torch.randn, loc.shape, generator, loc.device, loc.dtype)
     return loc + torch.exp(logscale) * noise
+
+
+def draw(fn, shape, generator: Optional[torch.Generator], device: torch.device,
+         dtype: torch.dtype = torch.float32) -> Tensor:
+    """``fn(shape)`` (``torch.randn`` or ``torch.rand``) drawn on the
+    generator's own device and moved to ``device``: the entry points take a
+    CPU generator, which PyTorch refuses for a draw on the card. Without a
+    generator the draw is made on ``device``."""
+    on = device if generator is None else generator.device
+    return fn(shape, generator=generator, dtype=dtype, device=on).to(device)
 
 
 def approx_cdf(x: Tensor) -> Tensor:

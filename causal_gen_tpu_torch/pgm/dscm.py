@@ -83,9 +83,12 @@ class DSCM:
         beta: Optional[float] = None,
         generator: Optional[torch.Generator] = None,
         noise: Optional[Iterable[Tensor]] = None,
+        t_abduct: Optional[float] = None,
     ) -> Dict[str, Any]:
         """Counterfactuals of ``obs`` (``x`` NCHW in [-1, 1] plus the parents)
         under intervention ``do``, with the factual ELBO and the losses.
+        ``t_abduct`` is the temperature of the abduction only; the decodes
+        run at t = None (causal_gen_tpu/pgm/dscm.py:121,151-159).
 
         Random draws: ``noise`` yields the standard-normal draws in order (the
         factual pass's posterior draws, then each particle's abduction draws),
@@ -106,7 +109,7 @@ class DSCM:
         for _ in range(cf_particles):
             cf_pa = self.pgm.counterfactual(pa, do, generator=generator)
             _cf_pa = vae_preprocess(cfg, cf_pa)
-            zs = self.vae.abduct(x, _pa, noise=noise, generator=generator)
+            zs = self.vae.abduct(x, _pa, noise=noise, generator=generator, t=t_abduct)
             cf_loc, cf_scale = self.vae.forward_latents(zs, _cf_pa, noise=noise,
                                                         generator=generator)
             rec_loc, rec_scale = self.vae.forward_latents(zs, _pa, noise=noise,

@@ -15,18 +15,29 @@ Phases, one progress line each:
   5. K3      - the DMoL loss kernels, forward and backward, against the plain op
                and its autograd at (32,100,32,32) and at a ragged size with
                pixels at -1, 1 and the 1e-5 switch; their times
-  6. slice   - DSCM.forward do(thickness) at the full Morpho-MNIST width, bs 32,
+  6. K4      - the DMoL sampler against its plain version with the same
+               uniforms at (32,100,32,32) and a ragged size, t 0.3 and 1; Philox
+               statistics over 2^20 pixels (mixture frequencies, KS of a
+               channel); its time against the bytes this run's picks need
+  7. slice   - DSCM.forward do(thickness) at the full Morpho-MNIST width, bs 32,
                weights and batch from a seed: the main path with the launch
                counts read around it, parity with the CPU plain path on the same
                weights and noise, the null-intervention identity, the
                2-particle variance map, the time per forward, and the
                device time by kernel under torch.profiler
-  7. train   - for morphomnist and for cmnist with the diag_dmol head, at full
+  8. sample  - HVAE.sample and forward_latents on the card with a CPU
+               generator (morphomnist); HVAE.sample(return_loc=False, t=0.7) on
+               cmnist with the diag_dmol head at full width, bs 32: the main
+               path with the launch counts read around it, card against the CPU
+               plain path in both modes with the draws injected (and on
+               morphomnist), its time and the profiler; DSCM.forward with
+               t_abduct=0.1, card against CPU
+  9. train   - for morphomnist and for cmnist with the diag_dmol head, at full
                width, bs 32: three updates and one step forced to skip, card
                against the CPU plain path from the same weights, batches and
                noise; the launch counts around one step; the time of a step
                (and at bs 256 for morphomnist); device time under the profiler
-  8. entry   - train() through cli.main on each configuration with an
+  10. entry  - train() through cli.main on each configuration with an
                in-memory dataset made from the seed: 2 epochs of 3 batches, one
                evaluation, a checkpoint written and read back; the launch
                counts around it are the kernels line's
@@ -382,6 +393,183 @@ def phase_k3():
             "shape": [b, 100, h, w]}
 
 
+def k4_inputs(b, h, w, device, seed=SEED):
+    """NCHW l (b,100,h,w) for K4 and its uniforms: logits ~ N(0, 1), means ~
+    N(0, 0.5), log-scales uniform on [-7.3, 0.5] (some under the -7 floor),
+    coeffs ~ N(0, 1); u_mix (b,10,h,w) and u (b,3,h,w) in [1e-5, 1 - 1e-5)."""
+    import numpy as np
+    import torch
+
+    from causal_gen_tpu_torch.ops.dmol import uniforms
+
+    rng = np.random.default_rng(seed)
+    l = rng.normal(0, 1, (b, 100, h, w))
+    for c in range(3):
+        base = 10 + 30 * c
+        l[:, base: base + 10] = rng.normal(0, 0.5, (b, 10, h, w))
+        l[:, base + 10: base + 20] = rng.uniform(-7.3, 0.5, (b, 10, h, w))
+    g = torch.Generator().manual_seed(seed)
+    cpu = torch.device("cpu")
+    u_mix = uniforms((b, 10, h, w), g, cpu).to(device)
+    u = uniforms((b, 3, h, w), g, cpu).to(device)
+    return torch.from_numpy(l.astype(np.float32)).to(device), u_mix, u
+
+
+def k4_picks(l, scale, t, nr_mix=10):
+    """The mixture each pixel took (B,H,W), read back from the sampler's scale
+    output: the k whose three clamped log-scales + log t lie nearest to
+    log(scale). Exact where the picked triple differs from every other."""
+    import torch
+
+    ls = torch.stack([l[:, 2 * nr_mix + 3 * nr_mix * c: 3 * nr_mix + 3 * nr_mix * c]
+                      for c in range(3)], dim=1)
+    want = torch.clamp(ls, min=-7.0) + math.log(t)
+    return (torch.log(scale)[:, :, None] - want).abs().sum(dim=1).argmin(dim=1)
+
+
+def k4_clear(l, u_mix, gap, nr_mix=10):
+    """Pixels (B,H,W) whose two best perturbed logits differ by more than
+    ``gap``: there the pick cannot turn on the last bits of a logit."""
+    import torch
+
+    top2 = torch.topk(l[:, :nr_mix] - torch.log(-torch.log(u_mix)), 2, dim=1).values
+    return (top2[:, 0] - top2[:, 1]) > gap
+
+
+def k4_compare(l, u_mix, t, got, ref, gap=1e-5, tol=1e-5):
+    """K4 against its plain version on the same uniforms: the same mixture on
+    every pixel clear of a near-tie, and x and scale within tol*(1+|ref|)
+    there. Returns (pixels excluded, max abs err); raises on a mismatch."""
+    from causal_gen_tpu_torch.ops.dmol import gumbel_select
+
+    clear = k4_clear(l, u_mix, gap)
+    bad_picks = ((k4_picks(l, got[1], t) != gumbel_select(l, u_mix, 10)) & clear).sum().item()
+    err = 0.0
+    for g_t, r_t, what in ((got[0], ref[0], "x"), (got[1], ref[1], "scale")):
+        diff = (g_t - r_t).abs()
+        bad = ((diff > tol * (1 + r_t.abs())) & clear[:, None]).sum().item()
+        if bad or bad_picks:
+            raise AssertionError(f"K4 disagrees with its plain version at {tuple(l.shape)}, t {t}: "
+                                 f"{bad} {what} values over {tol}*(1+|ref|), {bad_picks} picks")
+        err = max(err, diff[clear[:, None].expand_as(diff)].max().item())
+    return int((~clear).sum().item()), err
+
+
+def k4_philox_stats(device, b=16, h=256, w=256, seed=SEED):
+    """K4 in Philox mode on b*h*w pixels that share one set of logits: each
+    mixture's frequency as a z-score against softmax(logits), and the KS
+    distance of channel 0 (mean 0, log-scale -3 in every mixture, so that
+    its clip cannot bind) from the logistic CDF. Channel 1's log-scale,
+    -2 - 0.3 k, tells which mixture a pixel took."""
+    import torch
+
+    from causal_gen_tpu_torch.ops.dmol_sample import dmol_sample
+
+    k = torch.arange(10, dtype=torch.float32)
+    logits = torch.linspace(-1.5, 1.0, 10)
+    vec = torch.zeros(100)
+    vec[:10] = logits
+    vec[20:30] = -3.0
+    vec[50:60] = -2.0 - 0.3 * k
+    vec[80:90] = -3.0
+    l = vec[None, :, None, None].expand(b, 100, h, w).contiguous().to(device)
+    x, scale = dmol_sample(l, 10, 1.0, generator=torch.Generator().manual_seed(seed))
+    pick = (torch.log(scale[:, 1])[..., None] - (-2.0 - 0.3 * k).to(device)).abs().argmin(-1)
+    n = pick.numel()
+    counts = torch.bincount(pick.flatten(), minlength=10).double().cpu()
+    p = torch.softmax(logits.double(), 0)
+    z = (counts - n * p) / torch.sqrt(n * p * (1 - p))
+    x0 = torch.sort(x[:, 0].flatten().double()).values
+    cdf = torch.sigmoid(x0 / math.exp(-3.0))
+    i = torch.arange(n, device=device, dtype=torch.float64)
+    ks = max(((i + 1) / n - cdf).max().item(), (cdf - i / n).max().item())
+    again = dmol_sample(l, 10, 1.0, generator=torch.Generator().manual_seed(seed))[0]
+    other = dmol_sample(l, 10, 1.0, generator=torch.Generator().manual_seed(seed + 1))[0]
+    return {"pixels": n, "max_abs_z": z.abs().max().item(), "z": z.tolist(), "ks": ks,
+            "same_seed_repeats": bool(torch.equal(x, again)),
+            "other_seed_differs": not torch.equal(x, other)}
+
+
+def k4_bytes(pick, nr_mix=10):
+    """Bytes the sampler must move for these picks (B,H,W): every logit
+    (4 nr_mix B a pixel), each 32-B sector of a selected plane (mean,
+    log-scale and coeff of 3 channels) that some pixel's pick lies in, and
+    x and scale (24 B a pixel)."""
+    import torch.nn.functional as F
+
+    b, h, w = pick.shape
+    hw = h * w
+    if hw % 8:
+        raise ValueError("k4_bytes counts 32-B sectors of planes of whole sectors")
+    onehot = F.one_hot(pick.reshape(b, hw // 8, 8), nr_mix).any(dim=2)  # (b, sector, k)
+    return 4 * nr_mix * b * hw + 9 * 32 * int(onehot.sum().item()) + 24 * b * hw
+
+
+def phase_k4():
+    import statistics as st
+
+    import torch
+
+    from causal_gen_tpu_torch.ops.dmol import sample_from_discretized_mix_logistic
+    from causal_gen_tpu_torch.ops.dmol_sample import dmol_sample
+
+    dev = torch.device("cuda")
+    shapes = [(BS, 32, 32), (3, 7, 13)]
+    max_err, excluded = 0.0, 0
+    for i, shape in enumerate(shapes):
+        for t in (0.3, 1.0):
+            l, u_mix, u = k4_inputs(*shape, device=dev, seed=SEED + 20 + i)
+            got = dmol_sample(l, 10, t, u_mix=u_mix, u=u)
+            ref = sample_from_discretized_mix_logistic(l, 10, t, u_mix=u_mix, u=u)
+            torch.cuda.synchronize()
+            n_ex, err = k4_compare(l, u_mix, t, got, ref)
+            excluded += n_ex
+            max_err = max(max_err, err)
+    log("K4", f"injected uniforms: kernel == plain version (same pick, x and scale within "
+              f"1e-5*(1+|ref|)) at {[(b, 100, h, w) for b, h, w in shapes]}, t 0.3 and 1; "
+              f"{excluded} pixels within 1e-5 of a tie excluded; max abs err {max_err:.3e}")
+
+    stats = k4_philox_stats(dev)
+    if stats["max_abs_z"] > 5 or stats["ks"] > 0.005 or not stats["same_seed_repeats"] \
+            or not stats["other_seed_differs"]:
+        raise AssertionError(f"K4 Philox statistics off: {stats}")
+    log("K4", f"Philox: {stats['pixels']} pixels, mixture frequencies within "
+              f"{stats['max_abs_z']:.2f} sigma of softmax(logits), KS of channel 0 against "
+              f"the logistic CDF {stats['ks']:.2e}; same seed identical, other seed differs")
+
+    b, h, w = shapes[0]
+    pix = b * h * w
+    # 8 input sets (105 MB of l) overflow the 50 MB L2: from device memory
+    sets = [k4_inputs(b, h, w, device=dev, seed=SEED + 30 + i) for i in range(8)]
+
+    def philox(i):
+        return torch.Generator().manual_seed(SEED + i)
+
+    ms = cuda_time_ms([lambda l=l, i=i: dmol_sample(l, 10, 1.0, generator=philox(i))
+                       for i, (l, _, _) in enumerate(sets)])
+    ms_injected = cuda_time_ms([lambda l=l, um=um, u=u: dmol_sample(l, 10, 1.0, u_mix=um, u=u)
+                                for l, um, u in sets])
+    plain_ms = cuda_time_ms([lambda l=l, um=um, u=u: sample_from_discretized_mix_logistic(
+        l, 10, 1.0, u_mix=um, u=u) for l, um, u in sets])
+    # bytes: what the picks of the timed Philox runs need (the graph replays
+    # each call with the seeds it was captured with, so these picks); the
+    # dense count reads all 400 B of l a pixel. Operations: ~550 a pixel with
+    # Philox's integer work, 0.27 us at 67 TOP/s, so bytes bound it
+    nbytes = st.mean(k4_bytes(k4_picks(l, dmol_sample(l, 10, 1.0, generator=philox(i))[1], 1.0))
+                     for i, (l, _, _) in enumerate(sets))
+    dense_bytes = 424 * pix
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, 550 * pix / FP32_FLOPS_PER_S) * 1e3
+    bound_dense_ms = dense_bytes / HBM_BYTES_PER_S * 1e3
+    log("K4", f"({b},100,{h},{w}), from device memory: Philox kernel {ms * 1e3:.2f} us (bound "
+              f"{bound_ms * 1e3:.2f} us for the {nbytes / pix:.1f} B a pixel these picks need; "
+              f"{bound_dense_ms * 1e3:.2f} us for all 424 B), injected uniforms "
+              f"{ms_injected * 1e3:.2f} us, plain version {plain_ms * 1e3:.2f} us")
+    return {"max_abs_err": max_err, "excluded_pixels": excluded, "philox": stats, "ms": ms,
+            "ms_injected": ms_injected, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bytes": nbytes, "bound_ms_dense": bound_dense_ms, "bytes_dense": dense_bytes,
+            "shape": [b, 100, h, w]}
+
+
 def build_slice(cfg, device, state=None):
     import torch
 
@@ -540,6 +728,7 @@ def profile_calls(fn, calls: int = 3, unit: str = "forward"):
            f"k1_bwd_device_ms_per_{unit}": us_of("sample_kl_backward") / 1e3,
            f"k3_device_ms_per_{unit}": us_of("dmol_forward") / 1e3,
            f"k3_bwd_device_ms_per_{unit}": us_of("dmol_backward") / 1e3,
+           f"k4_device_ms_per_{unit}": us_of("dmol_sample_kernel") / 1e3,
            "top": [(k[:80], t / 1e3, c) for k, (t, c) in top]}
     log("profile", f"per {unit} under the profiler: wall {out[f'wall_ms_per_{unit}']:.2f} ms, "
                    f"device busy {out[f'device_ms_per_{unit}']:.2f} ms "
@@ -548,9 +737,168 @@ def profile_calls(fn, calls: int = 3, unit: str = "forward"):
                    f"{out[f'k1_device_ms_per_{unit}'] * 1e3:.1f} us, K1-bwd "
                    f"{out[f'k1_bwd_device_ms_per_{unit}'] * 1e3:.1f} us, K3 "
                    f"{out[f'k3_device_ms_per_{unit}'] * 1e3:.1f} us, K3-bwd "
-                   f"{out[f'k3_bwd_device_ms_per_{unit}'] * 1e3:.1f} us")
+                   f"{out[f'k3_bwd_device_ms_per_{unit}'] * 1e3:.1f} us, K4 "
+                   f"{out[f'k4_device_ms_per_{unit}'] * 1e3:.1f} us")
     for k, t, c in out["top"]:
         log("profile", f"  {t * 1e3:9.1f} us  x{c:<5d} {k}")
+    return out
+
+
+def _sample_noise(cfg, rng, head):
+    """Injected draws for HVAE.sample(return_loc=False) at bs BS: a standard
+    normal per stochastic block, then the head's draw (a normal of the image's
+    shape, or the DMoL uniforms (u_mix, u)), as CPU tensors."""
+    import torch
+
+    from causal_gen_tpu_torch.ops.dmol import UNIFORM_HI, UNIFORM_LO
+
+    res, n = cfg.input_res, BS
+    prior = [torch.from_numpy(rng.standard_normal((n, cfg.z_dim, r, r)).astype("float32"))
+             for r in k1_res(cfg)]
+    if head == "dmol":
+        draw = tuple(torch.from_numpy(rng.uniform(UNIFORM_LO, UNIFORM_HI, (n, c, res, res))
+                                      .astype("float32")) for c in (10, 3))
+    else:
+        draw = torch.from_numpy(rng.standard_normal((n, cfg.input_channels, res, res))
+                                .astype("float32"))
+    return prior, draw
+
+
+def _to(d, dev):
+    return tuple(t.to(dev) for t in d) if isinstance(d, tuple) else d.to(dev)
+
+
+def phase_sample(morpho_cfg):
+    """Sampling on the card: F1 (a CPU generator on CUDA), the cmnist +
+    diag_dmol HVAE.sample main path, card against CPU, its time, and
+    DSCM.forward with t_abduct."""
+    import numpy as np
+    import torch
+
+    from causal_gen_tpu_torch.models.hvae import HVAE
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(SEED + 40)
+    rng = np.random.default_rng(SEED + 41)
+    out = {}
+    with torch.inference_mode():
+        # F1: the prior draws take a CPU generator on the card
+        mvae = HVAE(morpho_cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
+        pa_m = torch.from_numpy(synth_parents(morpho_cfg, rng, BS)).to(dev)
+        loc, scale = mvae.sample(pa_m, return_loc=True, t=0.5, generator=g)
+        n_sto = len(k1_res(morpho_cfg))
+        fl_loc, fl_scale = mvae.forward_latents([None] * n_sto, pa_m, generator=g)
+        torch.cuda.synchronize()
+        for a in (loc, scale, fl_loc, fl_scale):
+            if a.shape != (BS, 1, 32, 32) or a.device.type != dev.type or not torch.isfinite(a).all():
+                raise AssertionError("F1: sample or forward_latents with a CPU generator is "
+                                     "malformed on the card")
+        log("sample", f"F1: morphomnist HVAE.sample(return_loc=True, t=0.5) and "
+                      f"forward_latents([None] * {n_sto}) with a CPU generator ran on the card")
+
+        # the main path: counts set to 0 just before, read just after
+        cfg = train_config("cmnist_dmol")
+        vae = HVAE(cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
+        pa = torch.from_numpy(synth_parents(cfg, rng, BS)).to(dev)
+        reset_counts()
+        x, s = vae.sample(pa, return_loc=False, t=0.7, generator=g)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = dict({k: 0 for k in counts}, dmol_sample=1)
+        if counts != want:
+            raise AssertionError(f"HVAE.sample cmnist diag_dmol: launches {counts}, expected {want}")
+        if x.shape != (BS, 3, 32, 32) or not torch.isfinite(x).all() or x.abs().max() > 1 \
+                or not torch.isfinite(s).all() or not (s > 0).all():
+            raise AssertionError("HVAE.sample cmnist diag_dmol: x or scale is malformed")
+        out["launches"] = counts
+        log("sample", f"main path HVAE.sample(return_loc=False, t=0.7) cmnist diag_dmol bs {BS}: "
+                      f"launches {counts}; x finite in [{x.min().item():.3f}, "
+                      f"{x.max().item():.3f}]")
+
+        # card against the CPU plain path, same weights and draws
+        out["card_vs_cpu"] = {}
+        for name, mcfg, gpu_model, head in (("morphomnist", morpho_cfg, mvae, "dgauss"),
+                                            ("cmnist diag_dmol", cfg, vae, "dmol")):
+            cpu_model = HVAE(mcfg, device="cpu")
+            cpu_model.load_state_dict({k: v.cpu() for k, v in gpu_model.state_dict().items()})
+            pa_c = torch.from_numpy(synth_parents(mcfg, rng, BS))
+            prior, draw = _sample_noise(mcfg, rng, head)
+            for return_loc in (True, False):
+                noise = prior + ([] if return_loc else [draw])
+                got = gpu_model.sample(pa_c.to(dev), return_loc, 0.7,
+                                       noise=iter([_to(e, dev) for e in noise]))
+                ref = cpu_model.sample(pa_c, return_loc, 0.7, noise=iter(noise))
+                clear = torch.ones((BS, mcfg.input_res, mcfg.input_res), dtype=torch.bool)
+                if head == "dmol" and not return_loc:
+                    # the pick turns on the last bits of a perturbed logit only
+                    # within ~1e-6 of a tie; l on the card and on the CPU
+                    # differ by conv rounding, so pixels within 1e-4 are left out
+                    h, _ = cpu_model.decoder(pa_c, noise=iter(prior), t=0.7)
+                    clear = k4_clear(cpu_model.likelihood.conv(h), draw[0], 1e-4)
+                err = max((a.cpu() - b).abs()[clear[:, None].expand_as(b)].max().item()
+                          for a, b in zip(got, ref))
+                key = f"{name} return_loc={return_loc}"
+                out["card_vs_cpu"][key] = {"max_abs_err": err,
+                                           "excluded_pixels": int((~clear).sum().item())}
+                if err > 1e-4:
+                    raise AssertionError(f"HVAE.sample {key}: card vs CPU max err {err:.3e}")
+        log("sample", "card == CPU plain path (TF32 off, draws injected), t 0.7: " + "; ".join(
+            f"{k} max abs err {v['max_abs_err']:.3e} ({v['excluded_pixels']} pixels within "
+            f"1e-4 of a tie left out)" for k, v in out["card_vs_cpu"].items()))
+
+        for _ in range(3):
+            vae.sample(pa, return_loc=False, t=0.7, generator=g)
+        times = []
+        for _ in range(15):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vae.sample(pa, return_loc=False, t=0.7, generator=g)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(times)
+        # the same with every draw made beforehand on the card: what the
+        # host's normals and their copies cost a call
+        prior, draw = _sample_noise(cfg, rng, "dmol")
+        noise = [_to(e, dev) for e in prior + [draw]]
+        times_inj = []
+        for _ in range(15):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vae.sample(pa, return_loc=False, t=0.7, noise=iter(noise))
+            torch.cuda.synchronize()
+            times_inj.append((time.perf_counter() - t0) * 1e3)
+        ms_inj = statistics.median(times_inj)
+        out.update({"sample_ms": ms, "sample_ms_all": times, "images_per_s": BS / ms * 1e3,
+                    "sample_ms_draws_on_card": ms_inj, "sample_ms_draws_on_card_all": times_inj})
+        log("sample", f"HVAE.sample(return_loc=False, t=0.7) cmnist diag_dmol bs {BS}: median "
+                      f"{ms:.3f} ms over 15 calls (min {min(times):.3f}, max {max(times):.3f}) = "
+                      f"{BS / ms * 1e3:.1f} images/s; with the draws made beforehand on the card "
+                      f"{ms_inj:.3f} ms (min {min(times_inj):.3f}, max {max(times_inj):.3f})")
+        out["profile"] = profile_calls(lambda: vae.sample(pa, return_loc=False, t=0.7,
+                                                          generator=g), 3, "sample")
+
+        # DSCM.forward with the abduction at t = 0.1: card against CPU
+        dscm = build_slice(morpho_cfg, "cuda")
+        obs = synth_obs(morpho_cfg, dev)
+        do = {"thickness": torch.full((BS, 1), 0.5, device=dev)}
+        noise = [rng.standard_normal((BS, morpho_cfg.z_dim, r, r)).astype(np.float32)
+                 for r in k1_res(morpho_cfg) * 2]
+        gpu = dscm.forward(obs, do, noise=[torch.from_numpy(e).to(dev) for e in noise],
+                           t_abduct=0.1)
+        cpu_dscm = build_slice(morpho_cfg, "cpu", state=[
+            {k: v.cpu() for k, v in m.state_dict().items()}
+            for m in (dscm.vae, dscm.pgm, dscm.predictor)])
+        cpu = cpu_dscm.forward({k: v.cpu() for k, v in obs.items()},
+                               {k: v.cpu() for k, v in do.items()},
+                               noise=[torch.from_numpy(e) for e in noise], t_abduct=0.1)
+        cf_err = (gpu["cfs"]["x"].cpu() - cpu["cfs"]["x"]).abs().max().item()
+        if cf_err > 1e-4:
+            raise AssertionError(f"DSCM.forward(t_abduct=0.1): card vs CPU cf_x err {cf_err:.3e}")
+        out["dscm_t_abduct_cf_x_err"] = cf_err
+        log("sample", f"DSCM.forward do(thickness) t_abduct=0.1 bs {BS}: card == CPU plain path, "
+                      f"cf_x max abs err {cf_err:.3e}")
     return out
 
 
@@ -588,19 +936,22 @@ def synth_parents(cfg, rng, n):
 
 def reset_counts():
     from causal_gen_tpu_torch.ops.dmol_loss import dmol_logprob, dmol_loss_bwd
+    from causal_gen_tpu_torch.ops.dmol_sample import dmol_sample
     from causal_gen_tpu_torch.ops.sample_kl import fused_sample_kl, fused_sample_kl_bwd
 
-    for fn in (fused_sample_kl, fused_sample_kl_bwd, dmol_logprob, dmol_loss_bwd):
+    for fn in (fused_sample_kl, fused_sample_kl_bwd, dmol_logprob, dmol_loss_bwd, dmol_sample):
         fn.launches = 0
 
 
 def read_counts():
     from causal_gen_tpu_torch.ops.dmol_loss import dmol_logprob, dmol_loss_bwd
+    from causal_gen_tpu_torch.ops.dmol_sample import dmol_sample
     from causal_gen_tpu_torch.ops.sample_kl import fused_sample_kl, fused_sample_kl_bwd
 
     return {"fused_sample_kl": fused_sample_kl.launches,
             "fused_sample_kl_bwd": fused_sample_kl_bwd.launches,
-            "dmol_loss": dmol_logprob.launches, "dmol_loss_bwd": dmol_loss_bwd.launches}
+            "dmol_loss": dmol_logprob.launches, "dmol_loss_bwd": dmol_loss_bwd.launches,
+            "dmol_sample": dmol_sample.launches}
 
 
 def expected_counts(cfg, train_steps, eval_batches=0):
@@ -609,7 +960,7 @@ def expected_counts(cfg, train_steps, eval_batches=0):
     fwd = (train_steps * cfg.accu_steps + eval_batches)
     return {"fused_sample_kl": n_sto * fwd, "fused_sample_kl_bwd": n_sto * train_steps * cfg.accu_steps,
             "dmol_loss": fwd if dmol else 0,
-            "dmol_loss_bwd": train_steps * cfg.accu_steps if dmol else 0}
+            "dmol_loss_bwd": train_steps * cfg.accu_steps if dmol else 0, "dmol_sample": 0}
 
 
 def phase_train(name):
@@ -798,8 +1149,6 @@ def phase_entry(name):
             "skipped": state.skipped}
 
 
-
-
 def main() -> int:
     import torch
 
@@ -819,12 +1168,16 @@ def main() -> int:
     k1 = phase_k1(cfg)
     k1b = phase_k1_bwd(cfg)
     k3 = phase_k3()
+    k4 = phase_k4()
     sl = phase_slice(cfg)
+    samp = phase_sample(cfg)
     train = {n: phase_train(n) for n in TRAIN_CONFIGS}
     entry = {n: phase_entry(n) for n in TRAIN_CONFIGS}
-    # launches on the main paths: DSCM.forward (the serving slice) and train()
-    # through cli.main on each configuration, each counted from 0
-    by_path = {"DSCM.forward": {"fused_sample_kl": sl["launches"]}}
+    # launches on the main paths: DSCM.forward (the serving slice),
+    # HVAE.sample on the DMoL head and train() through cli.main on each
+    # configuration, each counted from 0
+    by_path = {"DSCM.forward": {"fused_sample_kl": sl["launches"]},
+               "HVAE.sample cmnist diag_dmol": samp["launches"]}
     by_path.update({f"cli.main train {n}": e["launches"] for n, e in entry.items()})
 
     def launches(kernel):
@@ -854,12 +1207,17 @@ def main() -> int:
         row("dmol_loss_bwd", "causal_gen_tpu_torch/csrc/dmol_loss.cu",
             "causal_gen_tpu/ops/pallas_kernels.py:262",
             "phase K3 (autograd of the plain op, same inputs)", k3["bwd"]),
+        row("dmol_sample", "causal_gen_tpu_torch/csrc/dmol_sample.cu",
+            "causal_gen_tpu/ops/pallas_kernels.py:342",
+            "phase K4 (plain version with the same uniforms at (32,100,32,32) and a ragged "
+            "size, t 0.3 and 1; Philox statistics over 2^20 pixels)", k4,
+            ms_injected=k4["ms_injected"], bound_ms_dense=k4["bound_ms_dense"]),
     ]
     missing = [k["name"] for k in kernels if k["launches"] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on a main path: {missing}")
     record = {"device": name, "nvidia_smi": smi, "build_s": build_s, "k1": k1, "k1_bwd": k1b,
-              "k3": k3, "slice": sl, "train": train, "entry": entry, "kernels": kernels,
+              "k3": k3, "k4": k4, "slice": sl, "sample": samp, "train": train, "entry": entry, "kernels": kernels,
               "total_s": time.perf_counter() - t_start}
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)

@@ -152,8 +152,14 @@ def test_dmol_head_matches_jax():
     load_jax_params(head, params)
     got = head.nll(to_nchw(h), to_nchw(x))
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), rtol=0, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="K4"):
-        head.sample(to_nchw(h))
+    # the head's sample modes are held against JAX in test_torch_sample.py;
+    # here its default, the soft mean decode
+    jx, js = jhead.apply({"params": params}, jnp.asarray(h), method=jhead.sample)
+    x, s = head.sample(to_nchw(h))
+    np.testing.assert_allclose(x.detach().permute(0, 2, 3, 1).numpy(), np.asarray(jx),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(s.detach().permute(0, 2, 3, 1).numpy(), np.asarray(js),
+                               rtol=1e-5, atol=1e-5)
 
 
 def _cmnist_cfg(jax_side, **overrides):

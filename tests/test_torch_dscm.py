@@ -1,7 +1,8 @@
 """The slice as a whole: the port's ``DSCM.forward`` (abduct -> act -> predict
 on Morpho-MNIST) against the JAX package's, with the same weights and the same
-injected noise (1e-4), the null-intervention identity, and one run of the port
-alone at the full Morpho-MNIST width on the CPU."""
+injected noise (1e-4), also with the abduction at a temperature, the
+null-intervention identity, and one run of the port alone at the full
+Morpho-MNIST width on the CPU."""
 
 import jax
 import jax.numpy as jnp
@@ -79,6 +80,29 @@ def test_forward_matches_jax(monkeypatch, particles, do):
         np.testing.assert_allclose(nhwc(out["var_cf_x"]), np.asarray(ref["var_cf_x"]), atol=1e-4)
     else:
         assert out["var_cf_x"] is None and ref["var_cf_x"] is None
+
+
+@pytest.mark.parametrize("particles", [1, 2])
+def test_forward_with_t_abduct_matches_jax(monkeypatch, particles):
+    """t_abduct scales the abduction's posterior scales only; the decodes run
+    at t = None on both sides."""
+    jdscm, trainable, frozen, tdscm = _pair()
+    batch = synth_batch(16, 8, seed=10 + particles)
+    rec = patch_jax_noise(monkeypatch, seed=22)
+    patch_jax_nll_with_port(monkeypatch)  # see its docstring
+    ref = jdscm.forward(trainable, frozen, jax_batch(batch), {"thickness": jnp.full((8, 1), 0.3)},
+                        jax.random.PRNGKey(1), cf_particles=particles, t_abduct=0.1)
+    assert len(rec.draws) == 4 * (1 + particles)
+    with torch.no_grad():
+        out = tdscm.forward(torch_batch(batch), {"thickness": torch.full((8, 1), 0.3)},
+                            cf_particles=particles, noise=rec.torch_noise(), t_abduct=0.1)
+        at_one = tdscm.forward(torch_batch(batch), {"thickness": torch.full((8, 1), 0.3)},
+                               cf_particles=particles, noise=rec.torch_noise())
+    np.testing.assert_allclose(nhwc(out["cfs"]["x"]), np.asarray(ref["cfs"]["x"]), atol=1e-4)
+    for k in ("elbo", "nll", "kl", "aux_loss", "loss"):
+        np.testing.assert_allclose(out[k].item(), float(ref[k]), rtol=1e-4, err_msg=k)
+    # the temperature reached the abduction: cf_x moved
+    assert (out["cfs"]["x"] - at_one["cfs"]["x"]).abs().max() > 1e-3
 
 
 @pytest.mark.parametrize("null_do", ["observed", "empty"])

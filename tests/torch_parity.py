@@ -5,7 +5,10 @@ counterpart in ``causal_gen_tpu_torch``. Parameters come from the flax
 module's ``init`` and are converted with ``causal_gen_tpu_torch.convert``.
 Noise reaches the JAX HVAE through a patched ``sample_gaussian`` that draws
 from a seeded numpy queue and records each draw in order; the recorded draws
-then go into the port as ``noise=``.
+then go into the port as ``noise=``. The heads' own draws are caught the same
+way: DGaussNet's normal through a patched ``jax.random.normal``, and the DMoL
+sampler's key, from which ``jax_dmol_uniforms`` rebuilds its two uniform
+draws.
 """
 
 from __future__ import annotations
@@ -218,3 +221,46 @@ def patch_jax_nll_with_port(monkeypatch) -> None:
 
     nll.defvjp(nll_fwd, nll_bwd)
     monkeypatch.setattr(jax_lik, "discretized_gaussian_nll", nll)
+
+
+def jax_dmol_uniforms(key, b: int, h: int, w: int, nr_mix: int = 10):
+    """The two uniform draws of ``causal_gen_tpu.ops.dmol.
+    sample_from_discretized_mix_logistic`` under ``key``, as NCHW tensors
+    (u_mix (B,K,H,W), u (B,3,H,W)), made as that function makes them."""
+    k_mix, k_u = jax.random.split(key)
+    eps = jax.random.uniform(k_mix, (b, h, w, nr_mix), minval=1e-5, maxval=1.0 - 1e-5)
+    u = jax.random.uniform(k_u, (b, h, w, 3), minval=1e-5, maxval=1.0 - 1e-5)
+    return nchw(eps), nchw(u)
+
+
+class HeadDrawRecorder:
+    """Catches the draws of the JAX heads' ``sample(return_loc=False)``:
+    DGaussNet's standard normal (drawn here from a seeded numpy stream) and the
+    DMoL sampler's key (its uniforms rebuilt by ``jax_dmol_uniforms``). Each
+    draw is kept in the form the port's head takes it."""
+
+    def __init__(self, seed: int):
+        self.rng = np.random.default_rng(seed)
+        self.draws: List[Any] = []
+
+    def normal(self, key, shape, dtype=jnp.float32):
+        eps = self.rng.standard_normal(shape).astype(np.float32)
+        self.draws.append(nchw(eps))
+        return jnp.asarray(eps, dtype)
+
+    def dmol_sampler(self, original):
+        def sample(key, l, nr_mix, t=None):
+            b, h, w, _ = l.shape
+            self.draws.append(jax_dmol_uniforms(key, b, h, w, nr_mix))
+            return original(key, l, nr_mix, t=t)
+        return sample
+
+
+def patch_jax_head_draws(monkeypatch, seed: int) -> HeadDrawRecorder:
+    import causal_gen_tpu.ops.dmol as jax_dmol
+
+    rec = HeadDrawRecorder(seed)
+    monkeypatch.setattr(jax.random, "normal", rec.normal)
+    monkeypatch.setattr(jax_dmol, "sample_from_discretized_mix_logistic",
+                        rec.dmol_sampler(jax_dmol.sample_from_discretized_mix_logistic))
+    return rec
