@@ -1,11 +1,11 @@
-"""Datasets of the training path: Morpho-MNIST and Colour-MNIST.
+"""Datasets of the training path: Morpho-MNIST, Colour-MNIST and UK Biobank.
 
 Counterpart of ``causal_gen_tpu/data/datasets.py`` (reference src/datasets.py
-MorphoMNIST 202-304, ColourMNIST 307-389). Each dataset is held as contiguous
-numpy arrays (uint8 NHWC images and float32 parents); a batch is
-{"x": uint8 (B,H,W,C), "pa": float32 (B, context_dim)} with the parents in
-``cfg.parents_x`` order (digit and colour one-hot). The UK Biobank, MIMIC and
-3-D datasets come with their slices: ``setup_datasets`` refuses them.
+MorphoMNIST 202-304, ColourMNIST 307-389, UKBB 22-135). Each dataset is held
+as contiguous numpy arrays (uint8 NHWC images and float32 parents); a batch
+is {"x": uint8 (B,H,W,C), "pa": float32 (B, context_dim)} with the parents in
+``cfg.parents_x`` order (digit and colour one-hot). The MIMIC and 3-D
+datasets come with their slices: ``setup_datasets`` refuses them.
 """
 
 from __future__ import annotations
@@ -20,7 +20,12 @@ import numpy as np
 from causal_gen_tpu_torch.config import Config
 from causal_gen_tpu_torch.data import augment
 from causal_gen_tpu_torch.data.idx import load_idx
-from causal_gen_tpu_torch.utils.normalization import MORPHOMNIST_MIN_MAX, normalize
+from causal_gen_tpu_torch.utils.normalization import (
+    MORPHOMNIST_MIN_MAX,
+    get_attr_max_min,
+    log_standardize,
+    normalize,
+)
 
 
 def one_hot_np(x: np.ndarray, num_classes: int) -> np.ndarray:
@@ -158,7 +163,68 @@ def cmnist(cfg: Config, data_dir: Optional[str] = None, corrupt_p: Optional[floa
     return {"train": train_ds, "valid": eval_ds, "test": eval_ds}
 
 
-DATASETS = {"morphomnist": morphomnist, "cmnist": cmnist}
+# ---------------------------------------------------------------------------
+# UK Biobank brain MRI (reference datasets.py:22-135)
+# ---------------------------------------------------------------------------
+
+
+def _load_png_batch(paths: List[str], res: int) -> np.ndarray:
+    """Grey PNGs as (N, res, res) uint8, each resized bilinearly by PIL
+    where it is not res x res already."""
+    from PIL import Image
+
+    out = np.empty((len(paths), res, res), np.uint8)
+    for i, p in enumerate(paths):
+        img = Image.open(p)
+        if img.size != (res, res):
+            img = img.resize((res, res), Image.BILINEAR)
+        out[i] = np.asarray(img, np.uint8)
+    return out
+
+
+def _ukbb_attr(v: np.ndarray, k: str, context_norm: str) -> np.ndarray:
+    """Attribute ``k`` in ``context_norm``: the volumes and age to [-1, 1],
+    [0, 1] or log-standard; anything else (``raw``) and the binary attributes
+    as read."""
+    if k in ("age", "brain_volume", "ventricle_volume"):
+        hi, lo = get_attr_max_min(k)
+        if context_norm == "[-1,1]":
+            v = normalize(v, x_min=lo, x_max=hi)
+        elif context_norm == "[0,1]":
+            v = normalize(v, x_min=lo, x_max=hi, zero_one=True)
+        elif context_norm == "log_standard":
+            v = log_standardize(v)
+    return v.astype(np.float32)
+
+
+def ukbb(cfg: Config, data_dir: Optional[str] = None) -> Dict[str, ArrayDataset]:
+    """train/valid/test from ``brain_csv/<split>.csv`` and the 192x192 PNGs
+    under ``thumbs_192x192/`` (reference datasets.py:22-135)."""
+    root = data_dir or cfg.data_dir
+    res = cfg.input_res
+
+    def build(split: str, train: bool) -> ArrayDataset:
+        with open(os.path.join(root, "brain_csv", split + ".csv"), newline="") as f:
+            rows = list(csv.DictReader(f))
+        columns = list(cfg.parents_x)
+        attrs = {k: _ukbb_attr(np.array([float(r[k]) for r in rows], np.float32), k,
+                               cfg.context_norm) for k in columns}
+        paths = [os.path.join(root, "thumbs_192x192",
+                              f"{int(float(r['eid']))}_"
+                              f"{'T1' if float(r['mri_seq']) == 0.0 else 'T2_FLAIR'}"
+                              "_unbiased_brain_rigid_to_mni.png") for r in rows]
+        ds = ArrayDataset(images=_load_png_batch(paths, res)[..., None], attrs=attrs,
+                          columns=tuple(columns))
+        if train:
+            # torchvision RandomCrop padding=[2*pad, pad]: left/right by 2*pad,
+            # top/bottom by pad (reference datasets.py:106-109)
+            ds.aug = ("random_crop_flip", (res, res), (cfg.pad, 2 * cfg.pad), cfg.hflip)
+        return ds
+
+    return {s: build(s, s == "train") for s in ("train", "valid", "test")}
+
+
+DATASETS = {"morphomnist": morphomnist, "cmnist": cmnist, "ukbb": ukbb}
 
 
 def setup_datasets(cfg: Config, data_dir: Optional[str] = None) -> Dict[str, ArrayDataset]:

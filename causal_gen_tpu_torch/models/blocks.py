@@ -8,6 +8,10 @@ Submodules carry flax's auto-generated names (``Conv_0``, ``width_proj``,
 
 Padding: flax "SAME" for an odd kernel at stride 1 is ``k // 2`` on every side,
 which is what ``_conv`` sets.
+
+Compute dtype: with ``dtype=torch.bfloat16`` the parameters stay float32 and
+each conv casts its input, weight and bias to bf16 and returns bf16, as
+flax's ``nn.Conv(dtype=...)`` does (``conv_in``).
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
+
+from causal_gen_tpu_torch.ops.fused_block import fused_light_block
 
 # flax's lecun_normal draws a normal truncated at +-2 std, rescaled by this
 # constant so that the truncated draw keeps unit variance
@@ -58,20 +64,42 @@ def _conv(cin: int, cout: int, k: int, **kw) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, k, padding=k // 2, **kw)
 
 
+def _cast(t: Optional[Tensor], dtype: Optional[torch.dtype]) -> Optional[Tensor]:
+    return t if t is None or dtype is None else t.to(dtype)
+
+
+def conv_in(conv: nn.Conv2d, x: Tensor, dtype: Optional[torch.dtype]) -> Tensor:
+    """``conv(x)`` in the compute ``dtype`` (None: as the tensors come): input,
+    weight and bias cast, output in ``dtype``."""
+    if dtype is None:
+        return conv(x)
+    return conv._conv_forward(x.to(dtype), conv.weight.to(dtype), _cast(conv.bias, dtype))
+
+
 class Block(nn.Module):
     """Bottlenecked residual conv block (reference vae.py:33-84).
 
     version=None: GELU 1x1 -> kxk -> kxk -> 1x1 body ("morphomnist" variant),
     with exact erf GELU. version="light": ReLU kxk -> kxk two-conv body.
+
+    K2 (``ops/fused_block.py``) computes the whole body of a block it covers:
+    ``version="light"``, residual, kernel size 3 and no ``width_proj`` (in
+    width == out width); a ``down_rate`` block of that kind takes K2, then
+    the average pool. The block takes K2 when it covers it, autograd is not
+    recording (``torch.is_grad_enabled()`` is False, as under
+    ``torch.inference_mode()``: K2 has no gradient, as in JAX) and x comes in
+    the compute dtype; the kernel on CUDA, its plain version on the CPU.
+    Otherwise it runs its convs one by one (every training step does).
     """
 
     def __init__(self, in_width: int, bottleneck: int, out_width: int,
                  kernel_size: int = 3, residual: bool = True,
                  down_rate: Optional[int] = None, version: Optional[str] = None,
-                 last_scale: float = 1.0):
+                 last_scale: float = 1.0, dtype: Optional[torch.dtype] = None):
         super().__init__()
         k = kernel_size
         self.version = version
+        self.dtype = dtype
         self.residual = residual
         self.down_rate = down_rate
         self.last_scale = last_scale
@@ -88,6 +116,8 @@ class Block(nn.Module):
             self.width_proj = _conv(in_width, out_width, 1)
         else:
             self.width_proj = None
+        self.k2_covered = (version == "light" and residual and k == 3
+                           and self.width_proj is None)
 
     def init_extra_(self, generator: Optional[torch.Generator]) -> None:
         last = self._convs[-1].weight
@@ -96,15 +126,27 @@ class Block(nn.Module):
         else:
             lecun_normal_(last, generator, self.last_scale)
 
+    def takes_k2(self, x: Tensor) -> bool:
+        """Whether ``forward(x)`` runs K2 (see the class docstring)."""
+        return (self.k2_covered and not torch.is_grad_enabled()
+                and x.dtype == (self.dtype or torch.float32))
+
     def forward(self, x: Tensor) -> Tensor:
-        act = F.relu if self.version == "light" else (lambda v: F.gelu(v, approximate="none"))
-        out = x
-        for c in self._convs:
-            out = c(act(out))
-        if self.residual:
-            if self.width_proj is not None:
-                x = self.width_proj(x)
-            out = x + out
+        dt = self.dtype
+        if self.takes_k2(x):
+            c1, c2 = self._convs
+            out = fused_light_block(x.contiguous(), c1.weight.to(x.dtype), c2.weight.to(x.dtype),
+                                    _cast(c1.bias, x.dtype), _cast(c2.bias, x.dtype))
+        else:
+            act = F.relu if self.version == "light" else (
+                lambda v: F.gelu(v, approximate="none"))
+            out = x
+            for c in self._convs:
+                out = conv_in(c, act(out), dt)
+            if self.residual:
+                if self.width_proj is not None:
+                    x = conv_in(self.width_proj, x, dt)
+                out = x + out
         if self.down_rate:
             out = F.avg_pool2d(out, self.down_rate, self.down_rate)
         return out
@@ -115,8 +157,10 @@ class Encoder(nn.Module):
     (reference vae.py:87-134)."""
 
     def __init__(self, stages: Tuple, widths: Tuple[int, ...], bottleneck: int,
-                 input_channels: int, version: Optional[str] = None):
+                 input_channels: int, version: Optional[str] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         flat = []
         stem_width, stem_stride = widths[0], 1
         for i, stage in enumerate(stages):
@@ -132,12 +176,13 @@ class Encoder(nn.Module):
         for i, (width, d) in enumerate(flat):
             prev_width = flat[max(0, i - 1)][0]
             blocks.append(Block(prev_width, prev_width // bottleneck, width, down_rate=d,
-                                version=version, last_scale=float(math.sqrt(1.0 / n))))
+                                version=version, last_scale=float(math.sqrt(1.0 / n)),
+                                dtype=dtype))
             self.add_module(f"blocks_{i}", blocks[-1])
         self._blocks = blocks
 
     def forward(self, x: Tensor) -> Dict[int, Tensor]:
-        x = self.stem(x)
+        x = conv_in(self.stem, x, self.dtype)
         acts: Dict[int, Tensor] = {}
         for block in self._blocks:
             x = block(x)

@@ -19,9 +19,17 @@ the uniforms (u_mix, u) for DmolNet). Else they come from a
 ``torch.Generator``, a CPU one on any device. Tests feed the JAX side's noise
 through it.
 
-Not ported, and refused by ``HVAE``: ``cond_prior``, ``q_correction``, 3-D
-volumes and bf16 convs (later slices); the JAX ``stage_scan`` layout is a
-compile device and has no counterpart here.
+With ``cfg.dtype == "bfloat16"`` the convs compute in bf16 and the residual
+stream between blocks is bf16, with the JAX package's cast points: every
+conv input (``_cat``), the per-resolution biases and the prior feature in
+bf16; the prior and posterior stats, the KL, K1, the latents and the head in
+float32 (causal_gen_tpu/models/hvae.py:47-56, 130, 142, 375-381, 609). The
+parameters stay float32. The light blocks that K2 covers run it outside
+autograd (``models/blocks.py::Block``).
+
+Not ported, and refused by ``HVAE``: ``cond_prior``, ``q_correction`` and 3-D
+volumes (later slices); the JAX ``stage_scan`` layout is a compile device and
+has no counterpart here.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from causal_gen_tpu_torch.config import Config
 from causal_gen_tpu_torch.models.blocks import (
     Block,
     Encoder,
+    conv_in,
     init_params,
     lecun_normal_,
     upsample_nearest,
@@ -58,14 +67,28 @@ def _next(noise: Noise) -> Optional[Tensor]:
     return None if noise is None else next(noise)
 
 
+def _cat(parts: Sequence[Tensor], dtype: Optional[torch.dtype]) -> Tensor:
+    """Channel concat of conv inputs in the compute dtype, each part cast
+    first (causal_gen_tpu/models/hvae.py:47-56)."""
+    if dtype is not None:
+        parts = [p.to(dtype) for p in parts]
+    return torch.cat(parts, dim=1)
+
+
+def compute_dtype(cfg: Config) -> Optional[torch.dtype]:
+    """The conv compute dtype of ``cfg``: bf16, or None for float32."""
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else None
+
+
 class DecoderBlock(nn.Module):
     """Top-down stochastic block (reference vae.py:137-192)."""
 
     def __init__(self, in_width: int, out_width: int, resolution: int, z_dim: int,
                  context_dim: int, bottleneck_factor: int, stochastic: bool,
                  version: Optional[str], n_blocks: int, posterior_scale: float = 1.0,
-                 last: bool = False):
+                 last: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.resolution = resolution
         self.z_dim = z_dim
         self.stochastic = stochastic
@@ -73,17 +96,18 @@ class DecoderBlock(nn.Module):
         k = 3 if resolution > 2 else 1
         scale = float(math.sqrt(1.0 / n_blocks))
         self.prior = Block(in_width, bottleneck, 2 * z_dim + in_width, k, residual=False,
-                           version=version, last_scale=0.0)  # zero-init prior head (vae.py:308)
+                           version=version, last_scale=0.0,  # zero-init prior head (vae.py:308)
+                           dtype=dtype)
         if stochastic:
             self.posterior = Block(2 * in_width + context_dim, bottleneck, 2 * z_dim, k,
                                    residual=False, version=version,
-                                   last_scale=posterior_scale)
+                                   last_scale=posterior_scale, dtype=dtype)
         self.z_proj = nn.Conv2d(z_dim + context_dim, in_width, 1)
         self.z_proj_scale = scale
         # the final block's z feeds no later prior, so flax never creates it
         self.z_feat_proj = None if last else nn.Conv2d(z_dim + in_width, out_width, 1)
         self.conv = Block(in_width, bottleneck, out_width, k, residual=True,
-                          version=version, last_scale=scale)
+                          version=version, last_scale=scale, dtype=dtype)
 
     def init_extra_(self, generator: Optional[torch.Generator]) -> None:
         lecun_normal_(self.z_proj.weight, generator, self.z_proj_scale)
@@ -92,14 +116,15 @@ class DecoderBlock(nn.Module):
                       ) -> Tuple[Tensor, Tensor, Tensor]:
         z = self.prior(z)
         zd = self.z_dim
-        p_logscale = z[:, zd: 2 * zd]
+        stats = z[:, : 2 * zd].float()
+        p_logscale = stats[:, zd:]
         if t is not None:
             p_logscale = p_logscale + math.log(t)
-        return z[:, :zd], p_logscale, z[:, 2 * zd:]
+        return stats[:, :zd], p_logscale, z[:, 2 * zd:]
 
     def forward_posterior(self, z: Tensor, x: Tensor, pa: Tensor, t: Optional[float] = None
                           ) -> Tuple[Tensor, Tensor]:
-        out = self.posterior(torch.cat([z, _bcast_pa(pa, z), x], dim=1))
+        out = self.posterior(_cat([z, _bcast_pa(pa, z), x], self.dtype)).float()
         q_logscale = out[:, self.z_dim:]
         if t is not None:
             q_logscale = q_logscale + math.log(t)
@@ -121,6 +146,7 @@ class Decoder(nn.Module):
     def __init__(self, cfg: Config):
         super().__init__()
         self.cfg = cfg
+        self.dtype = compute_dtype(cfg)
         stages = plan_decoder_blocks(cfg)
         n = len(stages)
         rev_widths = tuple(reversed(cfg.model_widths))
@@ -129,7 +155,7 @@ class Decoder(nn.Module):
             blocks.append(DecoderBlock(
                 width, stages[min(n - 1, i + 1)][1], res, cfg.z_dim, cfg.context_dim,
                 cfg.bottleneck, res <= cfg.z_max_res, cfg.block_version, n,
-                cfg.posterior_init_scale, last=i + 1 == n,
+                cfg.posterior_init_scale, last=i + 1 == n, dtype=self.dtype,
             ))
             self.add_module(f"blocks_{i}", blocks[-1])
         self._blocks = blocks
@@ -141,7 +167,10 @@ class Decoder(nn.Module):
                     f"bias_{r}", nn.Parameter(torch.zeros(1, rev_widths[i], r, r)))
 
     def _bias_at(self, res: int) -> Optional[Tensor]:
-        return getattr(self, f"bias_{res}", None)
+        """The bias at ``res`` in the compute dtype, so that adding it keeps
+        the residual stream in that dtype (hvae.py:375-381)."""
+        b = getattr(self, f"bias_{res}", None)
+        return b if b is None or self.dtype is None else b.to(self.dtype)
 
     def _up(self, h: Tensor, res: int) -> Tensor:
         b = self._bias_at(res)
@@ -188,11 +217,11 @@ class Decoder(nn.Module):
             else:
                 z = p_loc
             h = h + p_feat
-            h = h + block.z_proj(torch.cat([z, _bcast_pa(pa, z)], dim=1))
+            h = h + conv_in(block.z_proj, _cat([z, _bcast_pa(pa, z)], self.dtype), self.dtype)
             h = block.conv(h)
             if block.z_feat_proj is not None:
                 # z independent of pa for the next prior (vae.py:297-300)
-                z = block.z_feat_proj(torch.cat([z, p_feat], dim=1))
+                z = conv_in(block.z_feat_proj, _cat([z, p_feat], self.dtype), self.dtype)
         return h, stats
 
 
@@ -208,13 +237,15 @@ class HVAE(nn.Module):
         super().__init__()
         unsupported = [k for k, bad in (
             ("cond_prior", cfg.cond_prior), ("q_correction", cfg.q_correction),
-            ("spatial_dims", cfg.spatial_dims != 2), ("dtype", cfg.dtype != "float32"),
+            ("spatial_dims", cfg.spatial_dims != 2),
         ) if bad]
+        if cfg.dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"HVAE: dtype {cfg.dtype!r} is neither float32 nor bfloat16")
         if unsupported:
             raise NotImplementedError(f"HVAE port: {unsupported} not ported yet")
         self.cfg = cfg
         self.encoder = Encoder(cfg.enc_stages, cfg.model_widths, cfg.bottleneck,
-                               cfg.input_channels, cfg.block_version)
+                               cfg.input_channels, cfg.block_version, compute_dtype(cfg))
         self.decoder = Decoder(cfg)
         self.likelihood = make_likelihood(cfg.input_channels, cfg.model_widths[0],
                                           cfg.x_like, cfg.std_init)
@@ -227,7 +258,7 @@ class HVAE(nn.Module):
         """Negative ELBO per pixel, with its NLL and KL terms."""
         acts = self.encoder(x)
         h, stats = self.decoder(parents, acts=acts, noise=noise, generator=generator)
-        nll_pp = self.likelihood.nll(h, x)
+        nll_pp = self.likelihood.nll(h.float(), x)
         if self.free_bits > 0:
             kl_pp = 0.0
             for stat in stats:
@@ -249,7 +280,7 @@ class HVAE(nn.Module):
         its loc (``return_loc``) or a sample at ``t``, with the scale."""
         h, _ = self.decoder(parents, noise=noise, generator=generator, t=t)
         draw = None if return_loc else _next(noise)
-        return self.likelihood.sample(h, return_loc, t, draw, generator)
+        return self.likelihood.sample(h.float(), return_loc, t, draw, generator)
 
     def abduct(self, x: Tensor, parents: Tensor, noise: Noise = None,
                generator: Optional[torch.Generator] = None, t: Optional[float] = None,
@@ -268,4 +299,4 @@ class HVAE(nn.Module):
         None) to the likelihood's (loc, scale); the head takes ``t`` in its
         loc mode, where it does not apply it (causal_gen_tpu/models/hvae.py:667-674)."""
         h, _ = self.decoder(parents, latents=latents, noise=noise, generator=generator, t=t)
-        return self.likelihood.sample(h, True, t)
+        return self.likelihood.sample(h.float(), True, t)

@@ -20,7 +20,7 @@ from typing import Dict, List
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES: Dict[str, Path] = {name: PACKAGE_DIR / "csrc" / f"{name}.cu"
-                            for name in ("sample_kl", "dmol_loss", "dmol_sample")}
+                            for name in ("sample_kl", "dmol_loss", "dmol_sample", "fused_block")}
 # -fmad=false: no multiply-add is contracted, so a kernel rounds one operation
 # at a time as its plain PyTorch version does
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -96,6 +96,29 @@ def normal_logpdf(x: Tensor, loc: Tensor, scale: Tensor) -> Tensor:
     return -0.5 * (z**2 + _LOG_2PI) - torch.log(scale)
 
 
+def bernoulli_logpmf_logits(x: Tensor, logits: Tensor) -> Tensor:
+    """log p(x) under Bernoulli(logits): x * l - softplus(l)."""
+    return x * logits - F.softplus(logits)
+
+
+def bernoulli_logpmf_probs(x: Tensor, probs: Tensor, eps: float = 1e-7) -> Tensor:
+    """log p(x) under Bernoulli(probs), probs clipped to [eps, 1 - eps]."""
+    p = torch.clamp(probs, eps, 1.0 - eps)
+    return x * torch.log(p) + (1.0 - x) * torch.log1p(-p)
+
+
 def onehot_categorical_logpmf(x_onehot: Tensor, logits: Tensor) -> Tensor:
     """log p(one-hot x) under Categorical(logits); sums over the class axis."""
     return torch.sum(x_onehot * F.log_softmax(logits, dim=-1), dim=-1)
+
+
+def sample_bernoulli(logits: Tensor, shape=None, generator: Optional[torch.Generator] = None,
+                     u: Optional[Tensor] = None) -> Tensor:
+    """1.0 where a uniform draw lies below sigmoid(logits), else 0.0, of
+    ``shape`` (default: the logits'). ``u`` is the uniform draw; without it one
+    is drawn from ``generator`` (on its own device, then moved)."""
+    p = torch.sigmoid(logits)
+    shape = tuple(p.shape) if shape is None else tuple(shape)
+    if u is None:
+        u = draw(torch.rand, shape, generator, logits.device)
+    return (u < p).to(torch.float32)

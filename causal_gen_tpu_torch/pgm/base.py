@@ -1,9 +1,9 @@
 """SCM core: node specs and abduct/act/predict over a causal DAG (PyTorch).
 
 Counterpart of ``causal_gen_tpu/pgm/base.py`` for the node kinds the
-Morpho-MNIST PGM reaches: ``CATEGORICAL_ROOT`` and ``FLOW`` (normal base).
-Values are {name: (B, d)} dicts. The Gumbel-Max posterior and the binary
-root come with the MIMIC and UKBB slices.
+Morpho-MNIST and UK Biobank PGMs reach: ``BINARY_ROOT``, ``CATEGORICAL_ROOT``
+and ``FLOW`` (normal base). Values are {name: (B, d)} dicts. The Gumbel-Max
+posterior comes with the MIMIC slice.
 """
 
 from __future__ import annotations
@@ -15,8 +15,10 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor
 
+from causal_gen_tpu_torch.ops.distributions import sample_bernoulli
 from causal_gen_tpu_torch.pgm.transforms import Transform
 
+BINARY_ROOT = "binary_root"  # Bernoulli(logits), value (B, 1) of 0.0 / 1.0
 CATEGORICAL_ROOT = "categorical_root"  # OneHotCategorical(logits), value (B, K)
 FLOW = "flow"  # TransformedDistribution(N(0,1), transform(parents))
 
@@ -26,7 +28,7 @@ class Node:
     name: str
     kind: str
     parents: Tuple[str, ...] = ()
-    logits_fn: Optional[Callable[[], Tensor]] = None  # categorical root: () -> (1, K)
+    logits_fn: Optional[Callable[[], Tensor]] = None  # binary/categorical root: () -> (1, K)
     transform_fn: Optional[Callable[[Dict[str, Tensor]], Transform]] = None  # flow
     dim: int = 1  # event dim of the value
 
@@ -66,9 +68,12 @@ def sample_scm(
                 # (n,) batch of scalars when d == 1, else a single (d,) value
                 v = v[:, None] if (d == 1 and v.shape[0] == n) else v[None, :]
             values[node.name] = torch.broadcast_to(v, (n, d))
-        elif node.kind == CATEGORICAL_ROOT:
+        elif node.kind in (BINARY_ROOT, CATEGORICAL_ROOT):
             if node.name in noise:  # observed root passthrough
                 values[node.name] = noise[node.name]
+            elif node.kind == BINARY_ROOT:
+                logits = node.logits_fn()
+                values[node.name] = sample_bernoulli(logits, (n, 1), generator).to(device)
             else:
                 values[node.name] = _onehot_sample(node.logits_fn(), n, generator)
         elif node.kind == FLOW:
@@ -83,12 +88,12 @@ def sample_scm(
 
 def infer_exogeneous(nodes: Sequence[Node], obs: Dict[str, Tensor]) -> Dict[str, Tensor]:
     """Abduction of the exogenous noise at flow sites by exact inversion
-    (reference flow_pgm.py:47-65)."""
+    (reference flow_pgm.py:47-65); root sites have none."""
     out: Dict[str, Tensor] = {}
     for node in nodes:
         if node.kind == FLOW:
             out[node.name + "_base"], _ = node.transform_fn(obs).inverse(obs[node.name])
-        elif node.kind != CATEGORICAL_ROOT:
+        elif node.kind not in (BINARY_ROOT, CATEGORICAL_ROOT):
             raise NotImplementedError(f"node kind {node.kind} is not ported yet")
     return out
 

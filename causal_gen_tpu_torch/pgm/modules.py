@@ -1,11 +1,11 @@
 """Neural nets used inside the PGMs (PyTorch, NCHW).
 
 Counterpart of ``causal_gen_tpu/pgm/modules.py`` for what the Morpho-MNIST
-PGM uses: ``CNN`` (the anticausal predictors) and ``DenseNN`` (the context
-net of the conditional affine flow). Submodules carry flax's auto-generated
-names (``Conv_0``, ``GroupNorm_0``, ``Dense_0``, ``LayerNorm_0``) so that
-converted parameters load key for key. Norms use flax's epsilon, 1e-6, not
-PyTorch's default 1e-5.
+and UK Biobank PGMs use: ``MLP`` and ``CNN`` (the anticausal predictors) and
+``DenseNN`` (the context net of the conditional affine flows). Submodules
+carry flax's auto-generated names (``Conv_0``, ``GroupNorm_0``, ``Dense_0``,
+``LayerNorm_0``) so that converted parameters load key for key. Norms use
+flax's epsilon, 1e-6, not PyTorch's default 1e-5.
 """
 
 from __future__ import annotations
@@ -22,6 +22,24 @@ FLAX_NORM_EPS = 1e-6
 def _gn(c: int) -> nn.GroupNorm:
     # reference norm_layer: GroupNorm(min(32, c//4), c) (flow_pgm.py:577)
     return nn.GroupNorm(max(1, min(32, c // 4)), c, eps=FLAX_NORM_EPS)
+
+
+class MLP(nn.Module):
+    """3-layer MLP head (reference layers.py:46-61, BatchNorm -> LayerNorm):
+    (Dense without bias -> LayerNorm -> leaky_relu 0.01) twice, then Dense."""
+
+    def __init__(self, in_dim: int, width: int = 32, num_outputs: int = 1):
+        super().__init__()
+        self.Dense_0 = nn.Linear(in_dim, width, bias=False)
+        self.LayerNorm_0 = nn.LayerNorm(width, eps=FLAX_NORM_EPS)
+        self.Dense_1 = nn.Linear(width, width, bias=False)
+        self.LayerNorm_1 = nn.LayerNorm(width, eps=FLAX_NORM_EPS)
+        self.Dense_2 = nn.Linear(width, num_outputs)
+
+    def forward(self, x: Tensor) -> Tensor:
+        for dense, norm in ((self.Dense_0, self.LayerNorm_0), (self.Dense_1, self.LayerNorm_1)):
+            x = F.leaky_relu(norm(dense(x)), 0.01)
+        return self.Dense_2(x)
 
 
 class CNN(nn.Module):

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
+
 # UKBB attribute (max, min) stats (reference datasets.py:89-98)
 UKBB_ATTR_MAX_MIN = {
     "age": (73.0, 44.0),
@@ -34,3 +36,10 @@ def normalize(x, x_min: float, x_max: float, zero_one: bool = False):
     """Min-max normalize to [0,1] or [-1,1] (reference utils.py:43-51)."""
     x = (x - x_min) / (x_max - x_min)
     return x if zero_one else 2 * x - 1
+
+
+def log_standardize(x):
+    """log, then standardise to mean 0 and std 1 (reference utils.py:54-55)."""
+    log_x = np.log(np.clip(x, 1e-12, None))
+    std = max(float(log_x.std()), 1e-12)
+    return (log_x - log_x.mean()) / std

@@ -19,6 +19,12 @@ Phases, one progress line each:
                uniforms at (32,100,32,32) and a ragged size, t 0.3 and 1; Philox
                statistics over 2^20 pixels (mixture frequencies, KS of a
                channel); its time against the bytes this run's picks need
+  6b. K2     - the fused light block against its plain version at ukbb192's
+               hot shapes (32,32,192,192) b=8 and (32,64,96,96) b=16, at
+               (32,192,6,6) b=48, (32,512,1,1) b=128 and a ragged shape, in
+               float32 (TF32 off) and bf16, with and without biases; its time
+               at the two hot shapes in bf16 beside the bound, the plain
+               version and the cuDNN conv pair
   7. slice   - DSCM.forward do(thickness) at the full Morpho-MNIST width, bs 32,
                weights and batch from a seed: the main path with the launch
                counts read around it, parity with the CPU plain path on the same
@@ -41,6 +47,17 @@ Phases, one progress line each:
                in-memory dataset made from the seed: 2 epochs of 3 batches, one
                evaluation, a checkpoint written and read back; the launch
                counts around it are the kernels line's
+  11. ukbb   - DSCM.forward do(ventricle_volume) on ukbb192 in bf16 at full
+               width and depth, bs 32, weights and batch from a seed, under
+               inference_mode: the main path with K2's and K1's launch counts
+               against the config's; card against the CPU plain path at bs 2
+               in float32 (1e-4) and in bf16 (the transfer's bound); the time
+               of a forward and the profiler
+  12. ukbb-sample - HVAE.sample(return_loc=False, t=0.7) on ukbb192 in bf16,
+               bs 32: K2 on every covered decoder block; card against CPU in
+               float32 at bs 2 with the draws injected; its time
+  13. ukbb-train  - the ukbb192 train step in bf16, bs 32: no K2 launch;
+               the first step card against CPU in float32 at bs 2; its time
 The last two lines are the kernels JSON and the result JSON. Any failure
 exits non-zero without the result line; the whole run stops itself after
 DEADLINE_S. Needs a CUDA device and the rest of the repository; reads no data
@@ -59,7 +76,7 @@ import sys
 import threading
 import time
 
-DEADLINE_S = 600
+DEADLINE_S = 1100  # the run must end within 1200 s, the kernels' build included
 BS = 32
 BENCH_BS = 256  # bench.py's Morpho-MNIST train step
 SEED = 0
@@ -570,6 +587,130 @@ def phase_k4():
             "shape": [b, 100, h, w]}
 
 
+K2_SHAPES = [(BS, 32, 8, 192, 192), (BS, 64, 16, 96, 96), (BS, 192, 48, 6, 6),
+             (BS, 512, 128, 1, 1), (3, 8, 2, 7, 13)]  # (B, C, b, H, W)
+BF16_FLOPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
+
+
+def k2_inputs(b, c, cb, h, w, dtype, bias, device, seed=SEED):
+    """NCHW x ~ N(0, 1) (b, c, h, w) and OIHW w1 (cb, c, 3, 3), w2 (c, cb, 3, 3)
+    scaled by 1/sqrt(fan-in), biases ~ N(0, 0.1) or None, in ``dtype``."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, c, h, w), generator=g)
+    w1 = torch.randn((cb, c, 3, 3), generator=g) / math.sqrt(9 * c)
+    w2 = torch.randn((c, cb, 3, 3), generator=g) / math.sqrt(9 * cb)
+    b1 = 0.1 * torch.randn((cb,), generator=g) if bias else None
+    b2 = 0.1 * torch.randn((c,), generator=g) if bias else None
+    return [None if t is None else t.to(device=device, dtype=dtype)
+            for t in (x, w1, w2, b1, b2)]
+
+
+def bf16_ulp(v):
+    """One bf16 ulp at |v| (elementwise): 2^(floor(log2 |v|) - 7); 2^-133 at 0."""
+    import torch
+
+    return torch.exp2(torch.floor(torch.log2(v.abs().float().clamp(min=2.0 ** -126))) - 7)
+
+
+def k2_compare(args, got, ref):
+    """K2 against its plain version on the same inputs. float32: within 1e-5
+    abs + rel. bf16: within one bf16 ulp of |y|, plus what one element of mid
+    rounded the other way moves y by (max |w2| times one ulp of max |mid|):
+    the two sum in another order in float32, and where a sum lands next to a
+    bf16 rounding boundary, mid or y round to the neighbouring value. Returns
+    (max abs err, elements that differ, elements beyond one ulp of |y|);
+    raises on a mismatch."""
+    import torch
+    import torch.nn.functional as F
+
+    x, w1, w2, b1, b2 = args
+    diff = (got.float() - ref.float()).abs()
+    if x.dtype == torch.float32:
+        tol = 1e-5 + 1e-5 * ref.abs()
+    else:
+        mid = F.conv2d(F.relu(x).float(), w1.float(), None if b1 is None else b1.float(),
+                       padding=1)
+        tol = bf16_ulp(ref) + w2.float().abs().max() * bf16_ulp(mid.abs().max())
+    bad = int((diff > tol).sum().item())
+    if bad or not torch.isfinite(got).all():
+        raise AssertionError(f"K2 disagrees with its plain version at {tuple(x.shape)} "
+                             f"{x.dtype}, bias {b1 is not None}: {bad} elements over the "
+                             f"tolerance, max err {diff.max().item():.3e}")
+    beyond_ulp = int((diff > bf16_ulp(ref)).sum().item()) if x.dtype != torch.float32 else 0
+    return diff.max().item(), int((diff > 0).sum().item()), beyond_ulp
+
+
+def k2_bound_ms(b, c, cb, h, w, itemsize):
+    """The least time of the K2 call: x read and y written once (plus the
+    weights), over the HBM rate; 36 C b flops a pixel over the bf16 tensor
+    cores' peak. Bytes bind at every model shape."""
+    nbytes = (2 * b * c * h * w + 18 * c * cb + c + cb) * itemsize
+    flops = 36 * c * cb * b * h * w
+    return max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3, nbytes, flops
+
+
+def phase_k2():
+    import torch
+    import torch.nn.functional as F
+
+    from causal_gen_tpu_torch.ops.fused_block import fused_light_block, fused_light_block_ref
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    checks = []
+    for i, (b, c, cb, h, w) in enumerate(K2_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            for bias in (False, True):
+                args = k2_inputs(b, c, cb, h, w, dtype, bias, dev, seed=SEED + 50 + i)
+                got = fused_light_block(*args)
+                ref = fused_light_block_ref(*args)
+                torch.cuda.synchronize()
+                err, n_diff, n_beyond = k2_compare(args, got, ref)
+                checks.append({"shape": [b, c, cb, h, w], "dtype": str(dtype)[6:], "bias": bias,
+                               "max_abs_err": err, "n_differ": n_diff,
+                               "n_beyond_one_ulp": n_beyond, "n": got.numel()})
+    for dt in ("float32", "bfloat16"):
+        cs = [ch for ch in checks if ch["dtype"] == dt]
+        log("K2", f"{dt}: kernel == plain version at (B,C,b,H,W) {K2_SHAPES}, with and "
+                  f"without biases; max abs err {max(ch['max_abs_err'] for ch in cs):.3e}; "
+                  f"elements that differ {sum(ch['n_differ'] for ch in cs)} of "
+                  f"{sum(ch['n'] for ch in cs)}"
+            + (f", beyond one ulp of |y| {sum(ch['n_beyond_one_ulp'] for ch in cs)}"
+               if dt == "bfloat16" else ""))
+
+    times = {}
+    for b, c, cb, h, w in K2_SHAPES[:2]:
+        # 3 input sets (x and y 75 MB each at 192^2) overflow the 50 MB L2: from device memory
+        sets = [k2_inputs(b, c, cb, h, w, torch.bfloat16, True, dev, seed=SEED + 60 + i)
+                for i in range(3)]
+        ms = cuda_time_ms([lambda a=a: fused_light_block(*a) for a in sets], reps=20, per_graph=6)
+        plain_ms = cuda_time_ms([lambda a=a: fused_light_block_ref(*a) for a in sets], reps=20,
+                                per_graph=6)
+
+        def cudnn_pair(x, w1, w2, b1, b2):
+            return x + F.conv2d(F.relu(F.conv2d(F.relu(x), w1, b1, padding=1)), w2, b2, padding=1)
+
+        library_ms = cuda_time_ms([lambda a=a: cudnn_pair(*a) for a in sets], reps=20,
+                                  per_graph=6)
+        bound_ms, nbytes, flops = k2_bound_ms(b, c, cb, h, w, 2)
+        key = f"{b}x{c}x{h}x{w}"
+        times[key] = {"shape": [b, c, cb, h, w], "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms, "bound_ms": bound_ms, "bytes": nbytes,
+                      "flops": flops}
+        log("K2", f"({b},{c},{h},{w}) b={cb} bf16 with biases, from device memory: kernel "
+                  f"{ms * 1e3:.1f} us (bound {bound_ms * 1e3:.1f} us by bytes, {nbytes / 1e6:.1f} "
+                  f"MB; {flops / 1e9:.2f} GFLOP take {flops / BF16_FLOPS_PER_S * 1e6:.1f} us at "
+                  f"the bf16 peak), plain version {plain_ms * 1e3:.1f} us, cuDNN conv pair "
+                  f"{library_ms * 1e3:.1f} us")
+    hot = times[f"{BS}x32x192x192"]
+    return {"checks": checks, "times": times,
+            "max_abs_err": max(ch["max_abs_err"] for ch in checks), **{
+                k: hot[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
+
+
 def build_slice(cfg, device, state=None):
     import torch
 
@@ -729,6 +870,7 @@ def profile_calls(fn, calls: int = 3, unit: str = "forward"):
            f"k3_device_ms_per_{unit}": us_of("dmol_forward") / 1e3,
            f"k3_bwd_device_ms_per_{unit}": us_of("dmol_backward") / 1e3,
            f"k4_device_ms_per_{unit}": us_of("dmol_sample_kernel") / 1e3,
+           f"k2_device_ms_per_{unit}": us_of("fused_light_block_kernel") / 1e3,
            "top": [(k[:80], t / 1e3, c) for k, (t, c) in top]}
     log("profile", f"per {unit} under the profiler: wall {out[f'wall_ms_per_{unit}']:.2f} ms, "
                    f"device busy {out[f'device_ms_per_{unit}']:.2f} ms "
@@ -738,7 +880,9 @@ def profile_calls(fn, calls: int = 3, unit: str = "forward"):
                    f"{out[f'k1_bwd_device_ms_per_{unit}'] * 1e3:.1f} us, K3 "
                    f"{out[f'k3_device_ms_per_{unit}'] * 1e3:.1f} us, K3-bwd "
                    f"{out[f'k3_bwd_device_ms_per_{unit}'] * 1e3:.1f} us, K4 "
-                   f"{out[f'k4_device_ms_per_{unit}'] * 1e3:.1f} us")
+                   f"{out[f'k4_device_ms_per_{unit}'] * 1e3:.1f} us, K2 "
+                   f"{out[f'k2_device_ms_per_{unit}'] * 1e3:.1f} us "
+                   f"({out[f'k2_device_ms_per_{unit}'] * 1e3 / device_us:.1%} of device time)")
     for k, t, c in out["top"]:
         log("profile", f"  {t * 1e3:9.1f} us  x{c:<5d} {k}")
     return out
@@ -902,6 +1046,351 @@ def phase_sample(morpho_cfg):
     return out
 
 
+UKBB_VARS = ("sex", "mri_seq", "age", "brain_volume", "ventricle_volume")
+UKBB_DO = "ventricle_volume"  # do(ventricle_volume = 0.5)
+CHECK_BS = 2  # batch of the card-vs-CPU checks at full ukbb192 width
+
+
+def ukbb_config(dtype="bfloat16", bs=BS):
+    """The registry's ukbb192 (z_max_res 192: all 40 decoder blocks are
+    stochastic), at its widths and depth."""
+    from causal_gen_tpu_torch.config import get_config
+
+    return get_config("ukbb192", bs=bs, dtype=dtype)
+
+
+def k2_cover(vae):
+    """(encoder blocks, decoder blocks) of an HVAE that K2 covers."""
+    return (sum(b.k2_covered for b in vae.encoder._blocks),
+            sum(b.conv.k2_covered for b in vae.decoder._blocks))
+
+
+def ukbb_bounds_per_forward(cfg, vae):
+    """The least device time of K2's 2 x encoder + 4 x decoder launches and of
+    K1's 2 x stochastic-block launches in one DSCM.forward at bs BS
+    (k2_bound_ms at each covered block's shape in bf16; K1 28 B an element),
+    of K2's decoder launches in one HVAE.sample, and of K1's and K1-bwd's
+    launches in one train step (28 and 40 B an element)."""
+    res_enc = []
+    for i, st in enumerate(cfg.enc_stages):
+        if i == 0 and st.n_blocks == 0 and st.down_rate is None:
+            continue
+        res_enc += [st.res] * (st.n_blocks + (st.down_rate is not None))
+
+    def k2_ms(blk, res):
+        cb, c = blk._convs[0].weight.shape[:2]
+        return k2_bound_ms(BS, c, cb, res, res, 2)[0]
+
+    enc = sum(k2_ms(b, r) for b, r in zip(vae.encoder._blocks, res_enc) if b.k2_covered)
+    dec = sum(k2_ms(d.conv, d.resolution) for d in vae.decoder._blocks if d.conv.k2_covered)
+    elems = sum(BS * cfg.z_dim * r * r for r in k1_res(cfg))
+    return {"k2_bound_ms_per_forward": 2 * enc + 4 * dec, "k2_bound_ms_per_sample": dec,
+            "k1_bound_ms_per_forward": 2 * 28 * elems / HBM_BYTES_PER_S * 1e3,
+            "k1_bound_ms_per_step": 28 * elems / HBM_BYTES_PER_S * 1e3,
+            "k1_bwd_bound_ms_per_step": 40 * elems / HBM_BYTES_PER_S * 1e3}
+
+
+def build_ukbb(cfg, device, state=None):
+    """The ukbb192 DSCM: the HVAE, the UKBB FlowPGM as PGM and as predictor
+    (cli/train_cf.py builds it so), weights from the seed or ``state``."""
+    import torch
+
+    from causal_gen_tpu_torch.models.hvae import HVAE
+    from causal_gen_tpu_torch.pgm.dscm import DSCM
+    from causal_gen_tpu_torch.pgm.flow_pgm import FlowPGM
+
+    g = torch.Generator().manual_seed(SEED)
+    vae = HVAE(cfg, device=device, generator=g)
+    pgm = FlowPGM(setup_predictors=False, device=device, generator=g)
+    pred = FlowPGM(setup_predictors=True, input_res=cfg.input_res, device=device, generator=g)
+    if state is not None:
+        for mod, sd in zip((vae, pgm, pred), state):
+            mod.load_state_dict(sd)
+    return DSCM(cfg, pgm, pred, vae)
+
+
+def ukbb_obs(cfg, n, device, seed=SEED):
+    """A batch in the PGM's space: x in [-1, 1], sex and mri_seq 0/1, age and
+    the volumes in [-0.8, 0.8]."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    res = cfg.input_res
+    obs = {"x": rng.uniform(-1, 1, (n, 1, res, res))}
+    for k in UKBB_VARS:
+        obs[k] = rng.integers(0, 2, (n, 1)) if k in ("sex", "mri_seq") else \
+            rng.uniform(-0.8, 0.8, (n, 1))
+    return {k: torch.tensor(v, dtype=torch.float32, device=device) for k, v in obs.items()}
+
+
+def ukbb_transfer_bound(dscm, obs, out, noise, eps=2.0 ** -4):
+    """Per-pixel bound on a bf16 cf_x against another bf16 run: decoded locs
+    within eps and scales within eps relative, through cf_x = cf_loc +
+    cf_scale u, u = (x - rec_loc) / rec_scale (tests/test_torch_ukbb_dscm.py),
+    from ``dscm``'s own decodes of ``obs`` with the abduction's ``noise``."""
+    from causal_gen_tpu_torch.pgm.dscm import vae_preprocess
+
+    cfg, vae = dscm.cfg, dscm.vae
+    pa = {k: v for k, v in obs.items() if k != "x"}
+    cf_pa = {k: v for k, v in out["cfs"].items() if k != "x"}
+    zs = vae.abduct(obs["x"], vae_preprocess(cfg, pa), noise=iter(noise))
+    rec_loc, rec_scale = vae.forward_latents(zs, vae_preprocess(cfg, pa))
+    _, cf_scale = vae.forward_latents(zs, vae_preprocess(cfg, cf_pa))
+    u = (obs["x"] - rec_loc) / rec_scale
+    return eps * (1 + 2 * (cf_scale * u).abs() + cf_scale / rec_scale)
+
+
+def phase_ukbb_slice():
+    """DSCM.forward on ukbb192 in bf16 at bs BS: the main path with K2's and
+    K1's launch counts against the config's, card against the CPU plain path
+    at bs CHECK_BS in float32 and in bf16, the time of a forward and the
+    profiler."""
+    import numpy as np
+    import torch
+
+    from causal_gen_tpu_torch.ops.fused_block import fused_light_block
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = ukbb_config()
+    dscm = build_ukbb(cfg, "cuda")
+    enc_k2, dec_k2 = k2_cover(dscm.vae)
+    n_sto = len(k1_res(cfg))
+    obs = ukbb_obs(cfg, BS, dev)
+    do = {UKBB_DO: torch.full((BS, 1), 0.5, device=dev)}
+    g = torch.Generator().manual_seed(SEED + 70)
+    out = {"config": "ukbb192 (registry: z_max_res 192, bias_max_res 64), bf16",
+           "k2_blocks": {"encoder": enc_k2, "decoder": dec_k2},
+           **ukbb_bounds_per_forward(cfg, dscm.vae)}
+    with torch.inference_mode():
+        # the main path: counts set to 0 just before, read just after
+        reset_counts()
+        res = dscm.forward(obs, do, generator=g)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = dict({k: 0 for k in counts}, fused_light_block=2 * enc_k2 + 4 * dec_k2,
+                    fused_sample_kl=2 * n_sto)
+        if counts != want:
+            raise AssertionError(f"ukbb192 DSCM.forward: launches {counts}, expected {want}")
+        cf_x = res["cfs"]["x"]
+        if cf_x.shape != obs["x"].shape or cf_x.dtype != torch.float32 \
+                or not torch.isfinite(cf_x).all() or cf_x.abs().max() > 1 \
+                or not all(torch.isfinite(res[k]) for k in ("elbo", "nll", "kl", "aux_loss",
+                                                              "loss")):
+            raise AssertionError("ukbb192 main path: cf_x or a loss term is malformed")
+        out["launches"] = counts
+        log("ukbb", f"main path {out['config']} DSCM.forward do({UKBB_DO}) bs {BS}: launches "
+                    f"{counts} (K2 covers {enc_k2} encoder and {dec_k2} decoder blocks: 2 x "
+                    f"{enc_k2} + 4 x {dec_k2}; K1 2 x {n_sto}); elbo {res['elbo'].item():.5f}")
+
+        # card against the CPU plain path: same weights, batch and noise
+        out["card_vs_cpu"] = {}
+        state = [{k: v.cpu() for k, v in m.state_dict().items()}
+                 for m in (dscm.vae, dscm.pgm, dscm.predictor)]
+        obs_c = ukbb_obs(cfg, CHECK_BS, torch.device("cpu"), seed=SEED + 71)
+        do_c = {UKBB_DO: torch.full((CHECK_BS, 1), 0.5)}
+        rng = np.random.default_rng(SEED + 72)
+        noise = [torch.from_numpy(rng.standard_normal((CHECK_BS, cfg.z_dim, r, r))
+                                  .astype(np.float32)) for r in k1_res(cfg) * 2]
+        for dtype in ("float32", "bfloat16"):
+            c = ukbb_config(dtype, CHECK_BS)
+            gpu_d, cpu_d = build_ukbb(c, "cuda", state), build_ukbb(c, "cpu", state)
+            gpu = gpu_d.forward({k: v.to(dev) for k, v in obs_c.items()},
+                                {k: v.to(dev) for k, v in do_c.items()},
+                                noise=[e.to(dev) for e in noise])
+            cpu = cpu_d.forward(obs_c, do_c, noise=noise)
+            err = (gpu["cfs"]["x"].cpu() - cpu["cfs"]["x"]).abs()
+            rel = {k: abs(gpu[k].item() - cpu[k].item()) / abs(cpu[k].item())
+                   for k in ("elbo", "nll", "kl", "aux_loss", "loss")}
+            entry = {"cf_x_max_abs_err": err.max().item(), "rel_err": rel}
+            if dtype == "float32":
+                ok = err.max().item() <= 1e-4 and max(rel.values()) <= 1e-4
+                what = "cf_x within 1e-4 abs, every term within 1e-4 rel"
+            else:
+                bound = ukbb_transfer_bound(cpu_d, obs_c, cpu, noise[n_sto:])
+                entry["cf_x_err_over_bound"] = (err / bound).max().item()
+                ok = entry["cf_x_err_over_bound"] <= 1 and \
+                    max(rel[k] for k in ("elbo", "nll", "kl")) <= 2e-2 and \
+                    max(rel[k] for k in ("aux_loss", "loss")) <= 2.0 ** -4
+                what = ("cf_x within the transfer's bound (eps 2^-4), elbo/nll/kl within 2e-2 "
+                        "rel, aux_loss/loss within 2^-4 rel")
+            out["card_vs_cpu"][dtype] = entry
+            if not ok:
+                raise AssertionError(f"ukbb192 DSCM.forward {dtype} card vs CPU: {entry}")
+            log("ukbb", f"{dtype} bs {CHECK_BS}: card == CPU plain path ({what}): cf_x max abs "
+                        f"err {err.max().item():.3e}"
+                + (f" ({entry['cf_x_err_over_bound']:.3f} of the bound)" if dtype != "float32"
+                   else "") + "; " + ", ".join(f"{k} rel {v:.2e}" for k, v in rel.items()))
+            del gpu_d, cpu_d
+
+        for _ in range(3):
+            dscm.forward(obs, do, generator=g)
+        times = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dscm.forward(obs, do, generator=g)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["profile"] = profile_calls(lambda: dscm.forward(obs, do, generator=g), 3, "forward")
+    ms = statistics.median(times)
+    out.update({"forward_ms": ms, "forward_ms_all": times, "cf_per_s": BS / ms * 1e3,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    log("ukbb", f"ukbb192 bf16 DSCM.forward bs {BS}: median {ms:.3f} ms over 20 calls (min "
+                f"{min(times):.3f}, max {max(times):.3f}) = {BS / ms * 1e3:.1f} cf/s; bounds "
+                f"a forward: K2 {out['k2_bound_ms_per_forward']:.3f} ms, K1 "
+                f"{out['k1_bound_ms_per_forward']:.3f} ms; K2 a sample "
+                f"{out['k2_bound_ms_per_sample']:.3f} ms; a train step: K1 "
+                f"{out['k1_bound_ms_per_step']:.3f} ms, K1-bwd "
+                f"{out['k1_bwd_bound_ms_per_step']:.3f} ms")
+    fused_light_block.launches = 0
+    return out
+
+
+def phase_ukbb_sample():
+    """HVAE.sample(return_loc=False, t=0.7) on ukbb192 in bf16 at bs BS: K2 on
+    every covered decoder block, card against CPU (float32, bs CHECK_BS,
+    draws injected), its time."""
+    import numpy as np
+    import torch
+
+    from causal_gen_tpu_torch.models.hvae import HVAE
+
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = ukbb_config()
+    vae = HVAE(cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    _, dec_k2 = k2_cover(vae)
+    g = torch.Generator().manual_seed(SEED + 80)
+    rng = np.random.default_rng(SEED + 81)
+    pa = torch.from_numpy(synth_parents(cfg, rng, BS)).to(dev)
+    out = {}
+    with torch.inference_mode():
+        reset_counts()
+        x, s = vae.sample(pa, return_loc=False, t=0.7, generator=g)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = dict({k: 0 for k in counts}, fused_light_block=dec_k2)
+        if counts != want:
+            raise AssertionError(f"ukbb192 HVAE.sample: launches {counts}, expected {want}")
+        res = cfg.input_res
+        if x.shape != (BS, 1, res, res) or not torch.isfinite(x).all() or x.abs().max() > 1 \
+                or not torch.isfinite(s).all():
+            raise AssertionError("ukbb192 HVAE.sample: x or scale is malformed")
+        out["launches"] = counts
+        log("ukbb-sample", f"main path HVAE.sample(return_loc=False, t=0.7) ukbb192 bf16 bs "
+                           f"{BS}: launches {counts}")
+
+        c = ukbb_config("float32", CHECK_BS)
+        gpu_m = HVAE(c, device="cuda")
+        gpu_m.load_state_dict(vae.state_dict())
+        cpu_m = HVAE(c, device="cpu")
+        cpu_m.load_state_dict({k: v.cpu() for k, v in vae.state_dict().items()})
+        pa_c = torch.from_numpy(synth_parents(c, rng, CHECK_BS))
+        noise = [torch.from_numpy(rng.standard_normal((CHECK_BS, c.z_dim, r, r))
+                                  .astype(np.float32)) for r in k1_res(c)]
+        noise.append(torch.from_numpy(rng.standard_normal((CHECK_BS, 1, res, res))
+                                      .astype(np.float32)))
+        got = gpu_m.sample(pa_c.to(dev), False, 0.7, noise=iter([e.to(dev) for e in noise]))
+        ref = cpu_m.sample(pa_c, False, 0.7, noise=iter(noise))
+        err = max((a.cpu() - b).abs().max().item() for a, b in zip(got, ref))
+        if err > 1e-4:
+            raise AssertionError(f"ukbb192 HVAE.sample float32: card vs CPU max err {err:.3e}")
+        out["card_vs_cpu_max_abs_err"] = err
+        log("ukbb-sample", f"float32 bs {CHECK_BS}: card == CPU plain path (TF32 off, draws "
+                           f"injected), x and scale max abs err {err:.3e}")
+        del gpu_m, cpu_m
+
+        for _ in range(3):
+            vae.sample(pa, return_loc=False, t=0.7, generator=g)
+        times = []
+        for _ in range(15):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vae.sample(pa, return_loc=False, t=0.7, generator=g)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["profile"] = profile_calls(lambda: vae.sample(pa, return_loc=False, t=0.7,
+                                                          generator=g), 3, "sample")
+    ms = statistics.median(times)
+    out.update({"sample_ms": ms, "sample_ms_all": times, "images_per_s": BS / ms * 1e3})
+    log("ukbb-sample", f"ukbb192 bf16 HVAE.sample bs {BS}: median {ms:.3f} ms over 15 calls (min "
+                       f"{min(times):.3f}, max {max(times):.3f}) = {BS / ms * 1e3:.1f} images/s")
+    return out
+
+
+def phase_ukbb_train():
+    """The ukbb192 train step in bf16 at bs BS: no K2 (autograd records), the
+    first step's metrics card against CPU in float32 at bs CHECK_BS, the time
+    of a step."""
+    import numpy as np
+    import torch
+
+    from causal_gen_tpu_torch.models.hvae import HVAE
+    from causal_gen_tpu_torch.train.state import init_train_state
+    from causal_gen_tpu_torch.train.vae_trainer import to_device, train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 90)
+    c = ukbb_config("float32", CHECK_BS)
+    cpu_m = HVAE(c, device="cpu", generator=torch.Generator().manual_seed(SEED))
+    gpu_m = HVAE(c, device="cuda")
+    gpu_m.load_state_dict(cpu_m.state_dict())
+    batch = synth_batch(c, rng)
+    noise = [rng.standard_normal((CHECK_BS, c.z_dim, r, r)).astype(np.float32)
+             for r in k1_res(c)]
+    ms = {}
+    for d, m in (("cpu", cpu_m), ("cuda", gpu_m)):
+        dv = torch.device(d)
+        out_d = train_step(c, init_train_state(c, m), to_device(batch, dv),
+                           noise=[[torch.from_numpy(e).to(dv) for e in noise]])
+        ms[d] = {k: float(v) for k, v in out_d.items()}
+    rel = {k: abs(ms["cuda"][k] - ms["cpu"][k]) / abs(ms["cpu"][k])
+           for k in ("elbo", "nll", "kl", "grad_norm")}
+    if max(rel.values()) > 1e-4 or ms["cuda"]["skipped"] != ms["cpu"]["skipped"]:
+        raise AssertionError(f"ukbb192 train step float32 card vs CPU: {ms}")
+    log("ukbb-train", f"float32 bs {CHECK_BS}: first step card == CPU plain path (TF32 off): "
+                      + ", ".join(f"{k} rel {v:.2e}" for k, v in rel.items()))
+    del cpu_m, gpu_m
+
+    cfg = ukbb_config()
+    st = init_train_state(cfg, HVAE(cfg, device="cuda",
+                                    generator=torch.Generator().manual_seed(SEED)))
+    b = to_device(synth_batch(cfg, rng), dev)
+    gen = torch.Generator().manual_seed(SEED + 91)
+    reset_counts()
+    m = train_step(cfg, st, b, generator=gen)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = dict(expected_counts(cfg, 1), fused_light_block=0)
+    if counts != want or not math.isfinite(float(m["elbo"])):
+        raise AssertionError(f"ukbb192 train step: launches {counts}, expected {want}; {m}")
+    log("ukbb-train", f"ukbb192 bf16 train step bs {BS}: launches {counts}; elbo "
+                      f"{float(m['elbo']):.4f}, grad_norm {float(m['grad_norm']):.2f}")
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        train_step(cfg, st, b, generator=gen)
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(cfg, st, b, generator=gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(times)
+    out = {"rel_err": rel, "launches": counts, "step_ms": med, "step_ms_all": times,
+           "images_per_s": BS / med * 1e3, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log("ukbb-train", f"ukbb192 bf16 train step bs {BS}: median {med:.3f} ms over 10 (min "
+                      f"{min(times):.3f}, max {max(times):.3f}) = {BS / med * 1e3:.1f} images/s; "
+                      f"peak memory {out['peak_mem_gb']:.1f} GB")
+    out["profile"] = profile_calls(lambda: train_step(cfg, st, b, generator=gen), 2, "step")
+    return out
+
+
 TRAIN_CONFIGS = {"morphomnist": {}, "cmnist_dmol": {"x_like": "diag_dmol"}}
 
 
@@ -937,21 +1426,25 @@ def synth_parents(cfg, rng, n):
 def reset_counts():
     from causal_gen_tpu_torch.ops.dmol_loss import dmol_logprob, dmol_loss_bwd
     from causal_gen_tpu_torch.ops.dmol_sample import dmol_sample
+    from causal_gen_tpu_torch.ops.fused_block import fused_light_block
     from causal_gen_tpu_torch.ops.sample_kl import fused_sample_kl, fused_sample_kl_bwd
 
-    for fn in (fused_sample_kl, fused_sample_kl_bwd, dmol_logprob, dmol_loss_bwd, dmol_sample):
+    for fn in (fused_sample_kl, fused_sample_kl_bwd, dmol_logprob, dmol_loss_bwd, dmol_sample,
+               fused_light_block):
         fn.launches = 0
 
 
 def read_counts():
     from causal_gen_tpu_torch.ops.dmol_loss import dmol_logprob, dmol_loss_bwd
     from causal_gen_tpu_torch.ops.dmol_sample import dmol_sample
+    from causal_gen_tpu_torch.ops.fused_block import fused_light_block
     from causal_gen_tpu_torch.ops.sample_kl import fused_sample_kl, fused_sample_kl_bwd
 
     return {"fused_sample_kl": fused_sample_kl.launches,
             "fused_sample_kl_bwd": fused_sample_kl_bwd.launches,
             "dmol_loss": dmol_logprob.launches, "dmol_loss_bwd": dmol_loss_bwd.launches,
-            "dmol_sample": dmol_sample.launches}
+            "dmol_sample": dmol_sample.launches,
+            "fused_light_block": fused_light_block.launches}
 
 
 def expected_counts(cfg, train_steps, eval_batches=0):
@@ -960,7 +1453,8 @@ def expected_counts(cfg, train_steps, eval_batches=0):
     fwd = (train_steps * cfg.accu_steps + eval_batches)
     return {"fused_sample_kl": n_sto * fwd, "fused_sample_kl_bwd": n_sto * train_steps * cfg.accu_steps,
             "dmol_loss": fwd if dmol else 0,
-            "dmol_loss_bwd": train_steps * cfg.accu_steps if dmol else 0, "dmol_sample": 0}
+            "dmol_loss_bwd": train_steps * cfg.accu_steps if dmol else 0, "dmol_sample": 0,
+            "fused_light_block": 0}
 
 
 def phase_train(name):
@@ -1169,16 +1663,24 @@ def main() -> int:
     k1b = phase_k1_bwd(cfg)
     k3 = phase_k3()
     k4 = phase_k4()
+    k2 = phase_k2()
     sl = phase_slice(cfg)
     samp = phase_sample(cfg)
     train = {n: phase_train(n) for n in TRAIN_CONFIGS}
     entry = {n: phase_entry(n) for n in TRAIN_CONFIGS}
-    # launches on the main paths: DSCM.forward (the serving slice),
-    # HVAE.sample on the DMoL head and train() through cli.main on each
-    # configuration, each counted from 0
-    by_path = {"DSCM.forward": {"fused_sample_kl": sl["launches"]},
+    uk = phase_ukbb_slice()
+    uk_samp = phase_ukbb_sample()
+    uk_train = phase_ukbb_train()
+    # launches on the main paths, each counted from 0: DSCM.forward (the
+    # Morpho-MNIST and the ukbb192 serving slices), HVAE.sample on the DMoL
+    # head and on ukbb192, train() through cli.main on each configuration and
+    # the ukbb192 train step
+    by_path = {"DSCM.forward morphomnist": {"fused_sample_kl": sl["launches"]},
                "HVAE.sample cmnist diag_dmol": samp["launches"]}
     by_path.update({f"cli.main train {n}": e["launches"] for n, e in entry.items()})
+    by_path.update({"DSCM.forward ukbb192 bf16": uk["launches"],
+                    "HVAE.sample ukbb192 bf16": uk_samp["launches"],
+                    "train_step ukbb192 bf16": uk_train["launches"]})
 
     def launches(kernel):
         return sum(p.get(kernel, 0) for p in by_path.values())
@@ -1187,7 +1689,7 @@ def main() -> int:
         return {"name": kernel, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches(kernel), "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": "bytes",
-                "library_ms": None, "held_by": held_by,
+                "library_ms": m.get("library_ms"), "held_by": held_by,
                 "launches_by_path": {p: c.get(kernel, 0) for p, c in by_path.items()}, **extra}
 
     kernels = [
@@ -1212,12 +1714,20 @@ def main() -> int:
             "phase K4 (plain version with the same uniforms at (32,100,32,32) and a ragged "
             "size, t 0.3 and 1; Philox statistics over 2^20 pixels)", k4,
             ms_injected=k4["ms_injected"], bound_ms_dense=k4["bound_ms_dense"]),
+        row("fused_light_block", "causal_gen_tpu_torch/csrc/fused_block.cu",
+            "causal_gen_tpu/ops/fused_block.py:190",
+            "phase K2 (plain version at (B,C,b,H,W) " + ", ".join(map(str, K2_SHAPES)) +
+            " in float32 and bf16, with and without biases); ms, plain_ms, library_ms "
+            "(cuDNN conv pair) and bound_ms at (32,32,192,192) b=8 bf16", k2,
+            times=k2["times"]),
     ]
     missing = [k["name"] for k in kernels if k["launches"] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on a main path: {missing}")
     record = {"device": name, "nvidia_smi": smi, "build_s": build_s, "k1": k1, "k1_bwd": k1b,
-              "k3": k3, "k4": k4, "slice": sl, "sample": samp, "train": train, "entry": entry, "kernels": kernels,
+              "k3": k3, "k4": k4, "k2": k2, "slice": sl, "sample": samp, "train": train,
+              "entry": entry, "ukbb": uk, "ukbb_sample": uk_samp, "ukbb_train": uk_train,
+              "kernels": kernels,
               "total_s": time.perf_counter() - t_start}
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)

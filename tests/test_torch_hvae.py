@@ -181,6 +181,6 @@ def test_abduct_and_forward_latents_at_a_temperature_match_jax(monkeypatch):
 
 
 def test_unported_config_features_raise():
-    for kw in (dict(cond_prior=True), dict(q_correction=True), dict(dtype="bfloat16")):
+    for kw in (dict(cond_prior=True), dict(q_correction=True), dict(spatial_dims=3)):
         with pytest.raises(NotImplementedError):
             HVAE(small_morpho_cfg(False, **kw), device="cpu")

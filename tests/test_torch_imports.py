@@ -1,6 +1,6 @@
 """Import hygiene of the port: ``causal_gen_tpu_torch``, ``chip_smoke.py`` and
 the card's tests must start on a machine without JAX, and the kernel wrappers
-(K1, K3, K4) must not fall back to their plain versions when a build or a launch
+(K1, K2, K3, K4) must not fall back to their plain versions when a build or a launch
 fails."""
 
 import ast
@@ -38,7 +38,8 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
-@pytest.mark.parametrize("name", ["sample_kl", "dmol_loss", "dmol_sample", "build"])
+@pytest.mark.parametrize("name", ["sample_kl", "dmol_loss", "dmol_sample", "fused_block",
+                                  "build"])
 def test_kernel_wrappers_have_no_fallback(name):
     tree = ast.parse((PKG / "ops" / f"{name}.py").read_text())
     handlers = [n for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)
