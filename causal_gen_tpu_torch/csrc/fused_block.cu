@@ -8,31 +8,64 @@
 // launched by fused_light_block at :190). What it keeps from it: the bottleneck
 // tensor mid never goes to device memory. What it drops: the (H, C, W*B)
 // batch-on-lanes ring layout, made for the TPU's 128-lane registers. Here the
-// tensors are NCHW with OIHW weights, as the port's modules hold them, and the
-// storage type is float or bf16 (a template).
+// tensors are NCHW with OIHW weights, as the port's modules hold them.
 //
-// Design, simple first: one block of 256 threads per TH x TW output tile of
-// one image.
-//   1. relu(x) on the tile with a 2-pixel halo, all C channels, goes into
-//      shared memory as float (zero outside the image);
-//   2. mid on the tile with a 1-pixel halo, all b channels, is computed from
-//      there into shared memory: a thread owns one position and up to 8
-//      output channels, so each shared-memory read feeds 8 FMAs; mid is zero
-//      outside the image (conv2's padding), and stored as relu(round(mid));
-//   3. y on the tile from the mid tile, the same way, plus the residual x
-//      read back from device memory (the block has just read it; L2).
-// Weights are read straight from device memory (uniform across a warp, so a
-// broadcast out of L1). The wrapper picks the tile so that the shared memory
-// (4 B per element) stays within ~100 KB where it can, and refuses a request
-// above the card's 227 KB.
+// Two kernels; the storage type alone chooses (ops/fused_block.py):
 //
-// Bound on the H100: bytes at the ukbb192 shapes in bf16 (x read and y
-// written once, 4C B a pixel, against 36C*b flops a pixel: 72 flop/B at
-// b = C/4, under the card's ~295 flop/B for bf16 tensor cores). This kernel
-// runs its FMAs on the CUDA cores in float32, so it is far from that bound;
-// tensor cores (mma/wgmma), TMA and a persistent grid are later work.
+// bf16: fused_light_block_kernel_tc, both convs as implicit GEMMs on the
+// tensor cores (mma.sync m16n8k16, bf16 in, float32 accumulate).
+//   1. Staging: the block's x region (its output tile plus a 2-pixel halo,
+//      cut at the image's edge) of NI images goes into shared memory once,
+//      as bf16 with channels innermost, [image][y][x][c], channels zero-padded
+//      to Cp (a multiple of 16, the MMA's k) and every row padded by 8
+//      elements so that ldmatrix's eight 16-byte rows fall in distinct banks.
+//      A tap that reads outside the image reads one shared zero row instead.
+//   2. conv1: M = the mid region's positions (tile plus 1-pixel halo, inside
+//      the image), N = b padded to 16, K = taps x Cp, one tap at a time (a tap
+//      is a shifted view of the x region). A comes from ldmatrix, relu'd in
+//      registers; B from ldmatrix on the weights. The epilogue adds b1,
+//      rounds to bf16, applies relu and stores mid in shared memory
+//      ([image][y][x][b], channels padded to 16, so b = 8, 24, 40 work).
+//   3. conv2: M = the output positions, N = C, K = taps x b padded; the
+//      epilogue adds b2 and x (read from the staged tile, not from device
+//      memory) in float32 and rounds y once.
+//   Weights: repacked by the kernel from OIHW into shared memory as
+//   [tap][out channel][in channel] (the B-fragment layout ldmatrix wants),
+//   each conv's weights in turn into one buffer, read 16 bytes a thread
+//   where all 9 taps are wanted. Where a conv's weights fit beside the tile
+//   (every ukbb192 shape) they stay for the whole conv ("resident");
+//   otherwise one tap of a pass at a time is staged with plain loads (a
+//   repack from OIHW cannot be a cp.async copy), between two barriers
+//   ("streamed"). A tap whose window lies wholly in the padding (every tap
+//   but the centre at 1x1) is neither staged nor multiplied. Where the image
+//   is smaller than 16 positions, a block takes NI images, so one staging of
+//   the weights serves NI times the rows.
+//   A warp takes 2 m16 tiles of positions and a pass of 16 or 32 (conv1) or
+//   32 (conv2) output channels; the staged weight rows are zero up to a
+//   whole pass, so the MMAs run unpredicated. A block has 256 threads where
+//   two fit an SM, else 512: the kernel is bound by the latency of its
+//   ldmatrix -> mma chains and needs the warps.
+//   Why mma.sync and not wgmma/TMA: at b = C/4 the block does 72 flop a byte
+//   of x and y, under the H100's ~295 flop/B for bf16, so bytes bound it at
+//   192^2 to 24^2 (45.1, 22.5, 8.5 and 2.9 us at ukbb192's shapes, bs 32; at
+//   (32,32,192,192) b=8 the tensor cores' share at peak is 11 us); mma.sync
+//   at a fraction of the peak can reach the byte bound there. Flops bound it
+//   at 12^2 and 6^2 (1.07 and 0.39 us) and the weights' bytes at 1^2
+//   (0.72 us). TMA, wgmma and a persistent grid are later work.
+//   Reached on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, bs 32, with
+//   biases): 397.6, 204.9, 92.2, 46.6, 46.8, 48.4 and 75.2 us at 192^2, 96^2,
+//   48^2, 24^2, 12^2, 6^2 and 1^2; 17.7 ms summed over a ukbb192
+//   DSCM.forward's 200 launches, against 28.6 ms for cuDNN's conv pair.
 //
-// The multiply-adds are explicit fmaf calls, kept under -fmad=false.
+// float32: fused_light_block_kernel<float>, the SIMT kernel as it was: one
+// block of 256 threads per TH x TW output tile of one image; relu(x) with a
+// 2-pixel halo and mid with a 1-pixel halo in shared memory as float, each
+// thread one position and up to 8 output channels as fmaf on the CUDA cores,
+// weights read from device memory. The tensor cores have no full-float32
+// path, and TF32 would not hold float32's 1e-5 check. 2153.8 us at
+// (32,32,192,192) b=8 on the same card (bound 162.3 us by float32 flops).
+//
+// The multiply-adds are explicit fmaf calls or MMAs, kept under -fmad=false.
 //
 // Build (plain C interface, bound with ctypes; see ops/build.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
@@ -43,21 +76,16 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // of a SIMT block
 constexpr int kGroup = 8;  // output channels a thread accumulates at once
 constexpr int kMaxSmem = 232448;  // 227 KB, the most one block can use
 
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
 template <>
 __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // acc[j] += sum over cin channels and 9 taps of src * w[co0 + j][cin][tap].
 // src points at the (0, 0) tap of channel 0 in a tile of row pitch `pitch`
@@ -160,46 +188,545 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
-           void* y, int64_t B, int C, int CB, int H, int W, int TH, int TW, int smem,
-           cudaStream_t stream) {
-  static int smem_set = 48 * 1024;  // the default limit of dynamic shared memory
-  if (smem > smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fused_light_block_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set = kMaxSmem;
+// ---------------------------------------------------------------------------
+// The bf16 tensor-core kernel.
+
+constexpr int kMaxThreads = 512;  // 256 or 512 threads a block: ops/fused_block.py::plan
+constexpr int kPad = 8;     // bf16 elements added to every shared-memory row
+constexpr int kMtW = 2;     // m16 tiles of a warp's item
+constexpr int kUnroll = 4;  // staging: loads a thread issues before it stores
+
+__host__ __device__ __forceinline__ int ceil16(int v) { return (v + 15) / 16 * 16; }
+__host__ __device__ __forceinline__ int ceil32(int v) { return (v + 31) / 32 * 32; }
+// n8 tiles of a conv1 pass: 32 mid channels where b padded to 16 is a
+// multiple of 32, else 16; conv2's passes are of 32 output channels
+__host__ __device__ __forceinline__ int conv1_nt(int CB) { return ceil16(CB) % 32 ? 2 : 4; }
+
+// Elements of shared memory, by region, as ops/fused_block.py::tc_smem_bytes
+// counts them; the byte count is twice the sum.
+struct TcLayout {
+  int zero, x, mid, w;
+  __host__ __device__ TcLayout(int C, int CB, int H, int W, int TH, int TW, int NI,
+                               int resident) {
+    const int cp = ceil16(C), cbp = ceil16(CB);
+    const int xh = TH + 4 < H ? TH + 4 : H, xw = TW + 4 < W ? TW + 4 : W;
+    const int mh = TH + 2 < H ? TH + 2 : H, mw = TW + 2 < W ? TW + 2 : W;
+    const int taps = (H > 1 ? 3 : 1) * (W > 1 ? 3 : 1);
+    zero = (cp > cbp ? cp : cbp) + kPad;
+    x = NI * xh * xw * (cp + kPad);
+    mid = NI * mh * mw * (cbp + kPad);
+    // weight rows staged: every pass's (resident) or one pass's (streamed)
+    const int r1 = resident ? cbp : conv1_nt(CB) * 8, r2 = resident ? ceil32(C) : 32;
+    const int t = resident ? taps : 1;
+    const int w1 = t * r1 * (cp + kPad), w2 = t * r2 * (cbp + kPad);
+    w = w1 > w2 ? w1 : w2;
   }
-  const int tiles_x = (W + TW - 1) / TW;
-  const int tiles_y = (H + TH - 1) / TH;
-  const dim3 grid(static_cast<unsigned>(tiles_x * tiles_y), static_cast<unsigned>(B));
-  fused_light_block_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w1), static_cast<const T*>(b1),
-      static_cast<const T*>(w2), static_cast<const T*>(b2), static_cast<T*>(y), C, CB, H, W,
-      TH, TW, tiles_x);
-  return static_cast<int>(cudaGetLastError());
+  __host__ __device__ int64_t bytes() const {
+    return 2 * (static_cast<int64_t>(zero) + x + mid + w);
+  }
+};
+
+struct TcArgs {
+  const uint16_t* x;  // bf16 bits
+  const uint16_t* w1;
+  const uint16_t* b1;
+  const uint16_t* w2;
+  const uint16_t* b2;
+  uint16_t* y;
+  int B, C, CB, H, W, TH, TW, NI, tiles_x, resident;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, float32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// relu of two packed bf16 (a NaN stays NaN, as in F.relu)
+__device__ __forceinline__ uint32_t relu_bf16x2(uint32_t v) {
+  __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&v);
+  h = __hmax2_nan(h, __nv_bfloat162(__ushort_as_bfloat16(0), __ushort_as_bfloat16(0)));
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float bf16_bits_to_f(uint16_t v) {
+  return __uint_as_float(static_cast<uint32_t>(v) << 16);
+}
+
+__device__ __forceinline__ uint16_t f_to_bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// q / d for 0 <= q, d < 2^16 as one multiply-high by m = ceil(2^32 / d)
+struct FastDiv {
+  int d;
+  uint32_t m;
+  __device__ explicit FastDiv(int d_)
+      : d(d_), m(d_ > 1 ? static_cast<uint32_t>((0x100000000ull + d_ - 1) / d_) : 0u) {}
+  __device__ __forceinline__ int div(int q) const {
+    return d > 1 ? static_cast<int>(__umulhi(static_cast<uint32_t>(q), m)) : q;
+  }
+};
+
+// The positions of a region of the block's images, row-major per image, and
+// the region of shared memory the taps read them from.
+struct Region {
+  int h, w, y0, x0;        // the rows' region: size and top-left in the image
+  int sh, sw, sy0, sx0;    // the read region: size and top-left in the image
+  uint32_t base;           // shared address of the read region's first row
+  int pitch;               // bytes a row (position)
+};
+
+// Lane's A row m: the read region's row of its centre tap and a bit for each
+// of the 9 taps (3 (dy + 1) + dx + 1) whose read lies in the image; none past
+// M (the zero row is read and the result dropped).
+struct RowPos {
+  int srow;
+  uint32_t taps;
+};
+
+__device__ __forceinline__ RowPos locate(const Region& r, const FastDiv& per,
+                                         const FastDiv& wd, int m, int M, int H, int W) {
+  RowPos p{0, 0u};
+  if (m >= M) return p;
+  const int img = per.div(m);
+  const int q = m - img * per.d;
+  const int yy = wd.div(q);
+  const int gy = r.y0 + yy, gx = r.x0 + q - yy * r.w;
+  p.srow = (img * r.sh + gy - r.sy0) * r.sw + gx - r.sx0;
+#pragma unroll
+  for (int dy = -1; dy <= 1; ++dy)
+#pragma unroll
+    for (int dx = -1; dx <= 1; ++dx)
+      if (gy + dy >= 0 && gy + dy < H && gx + dx >= 0 && gx + dx < W)
+        p.taps |= 1u << (3 * (dy + 1) + dx + 1);
+  return p;
+}
+
+// Stages w (OIHW, n_real x k_real x 3 x 3) rows [n0, n0 + rows) of taps
+// [t0, t0 + nt) (indices into the taps the image needs: ky0.. by kx0.., nkx
+// wide) into shared memory as [tap][row][kp + kPad], zero past n_real and
+// k_real. When the rows of all 9 taps are wanted they are one contiguous run
+// of w, read 16 bytes a thread and scattered; otherwise a thread reads 8 in
+// channels of one (tap, row), taps fastest. kUnroll loads in flight a thread.
+__device__ __forceinline__ void stage_weights(uint16_t* ws, const uint16_t* __restrict__ w,
+                                              int n_real, int k_real, int kp, int n0, int rows,
+                                              int t0, int nt, int ky0, int kx0, int nkx) {
+  const int pitch = kp + kPad;
+  const int real_rows = max(0, min(rows, n_real - n0));
+  if (nt == 9 && (static_cast<int64_t>(n0) * k_real * 9) % 8 == 0 &&
+      reinterpret_cast<uintptr_t>(w) % 16 == 0) {
+    const uint16_t* src = w + static_cast<int64_t>(n0) * k_real * 9;
+    const int total = real_rows * k_real * 9;  // elements
+    const int vecs = total / 8;
+    for (int i0 = threadIdx.x; i0 < vecs; i0 += kUnroll * static_cast<int>(blockDim.x)) {
+      uint4 v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int i = i0 + u * static_cast<int>(blockDim.x);
+        if (i < vecs) v[u] = __ldg(reinterpret_cast<const uint4*>(src) + i);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int i = i0 + u * static_cast<int>(blockDim.x);
+        if (i >= vecs) continue;
+        const uint32_t words[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+        int idx = 8 * i;
+        int n = idx / (k_real * 9), rem = idx - n * k_real * 9;
+        int k = rem / 9, tap = rem - k * 9;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          ws[(tap * rows + n) * pitch + k] = static_cast<uint16_t>(words[j / 2] >> (16 * (j % 2)));
+          if (++tap == 9) {
+            tap = 0;
+            if (++k == k_real) {
+              k = 0;
+              ++n;
+            }
+          }
+        }
+      }
+    }
+    for (int i = vecs * 8 + threadIdx.x; i < total; i += blockDim.x) {  // the tail past 8
+      const int n = i / (k_real * 9), rem = i - n * k_real * 9;
+      ws[((rem % 9) * rows + n) * pitch + rem / 9] = __ldg(src + i);
+    }
+    // zero the padding: in channels past k_real of the real rows, rows past n_real
+    const int zk = kp - k_real;
+    for (int i = threadIdx.x; i < 9 * real_rows * zk; i += blockDim.x) {
+      const int r = i / zk, tap = r / real_rows;
+      ws[(tap * rows + r - tap * real_rows) * pitch + k_real + i % zk] = 0;
+    }
+    for (int i = threadIdx.x; i < 9 * (rows - real_rows) * kp; i += blockDim.x) {
+      const int r = i / kp, tap = r / (rows - real_rows);
+      ws[(tap * rows + real_rows + r % (rows - real_rows)) * pitch + i % kp] = 0;
+    }
+    return;
+  }
+  const int kq = kp / 8;
+  const int total = nt * kq * rows;
+  for (int i0 = threadIdx.x; i0 < total; i0 += kUnroll * static_cast<int>(blockDim.x)) {
+    uint32_t v[kUnroll][4];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = i0 + u * static_cast<int>(blockDim.x);
+      const int t = i % nt, rest = i / nt;
+      const int q = rest % kq, n = n0 + rest / kq;
+      const int tap = t0 + t;
+      const uint16_t* src = w + (static_cast<int64_t>(n) * k_real + q * 8) * 9 +
+                            (ky0 + tap / nkx) * 3 + kx0 + tap % nkx;
+      const bool row_ok = i < total && n < n_real;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k = q * 8 + 2 * j;
+        const uint32_t lo = row_ok && k < k_real ? __ldg(src + 18 * j) : 0u;
+        const uint32_t hi = row_ok && k + 1 < k_real ? __ldg(src + 18 * j + 9) : 0u;
+        v[u][j] = lo | (hi << 16);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = i0 + u * static_cast<int>(blockDim.x);
+      if (i < total) {
+        const int t = i % nt, rest = i / nt;
+        const int q = rest % kq, nr = rest / kq;
+        *reinterpret_cast<uint4*>(ws + (t * rows + nr) * pitch + q * 8) =
+            make_uint4(v[u][0], v[u][1], v[u][2], v[u][3]);
+      }
+    }
+  }
+}
+
+// One 3x3 conv of the block as an implicit GEMM: M rows of `rg`, n_out
+// output channels (n_real of them in w and bias, the rest zero) in passes of
+// NT n8 tiles, K = ntaps x kp. Every pass computes all NT tiles (the staged
+// weight rows past n_real are zero), so the MMAs run unpredicated. Resident:
+// the weights are in `ws` for all taps and passes, and the warps share out
+// every (pass, item) at once.
+// Streamed: the passes run in turn, each tap of a pass staged here between
+// barriers. epi(row, n, nt_valid, v) takes a row's results plus bias: v[nt]
+// at channels n + 8 nt + {0, 1}.
+template <bool kRelu, int NT, typename Epi>
+__device__ __forceinline__ void conv_gemm(const Region& rg, int M, int n_out, int kp,
+                                          uint16_t* ws, bool resident, const uint16_t* w,
+                                          const uint16_t* bias, int n_real, int k_real, int ky0,
+                                          int nky, int kx0, int nkx, int H, int W,
+                                          uint32_t zero_row, Epi epi) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ntaps = nky * nkx;
+  const int wpitch = (kp + kPad) * 2;
+  const int ksteps = kp / 16;
+  const int items = ((M + 15) / 16 + kMtW - 1) / kMtW;
+  const int passes = (n_out + NT * 8 - 1) / (NT * 8);
+  const int work = resident ? items * passes : items;  // of one stage round
+  const int warps = blockDim.x / 32;
+  const int rounds = (work + warps - 1) / warps;
+  const uint32_t ws_addr = smem_u32(ws);
+  const FastDiv per(rg.h * rg.w), wd(rg.w);
+  // lane's row of an ldmatrix x4 over B (two n8 tiles x k16), and its k half
+  const int b_row = (lane & 7) + ((lane >> 4) << 3);
+  const int b_k = ((lane >> 3) & 1) * 16;
+  for (int sp = 0; sp < (resident ? 1 : passes); ++sp) {
+    for (int round = 0; round < rounds; ++round) {
+      const int wi = round * warps + warp;
+      const bool has = wi < work;
+      const int pass = resident ? wi / items : sp;
+      const int item = resident ? wi - pass * items : wi;
+      const int n0 = pass * NT * 8;
+      const int nt_valid = min(NT, (n_out - n0 + 7) / 8);
+      const int w_rows = resident ? passes * NT * 8 : NT * 8;
+      const int w_row0 = resident ? n0 : 0;
+      RowPos pos[kMtW];
+#pragma unroll
+      for (int mt = 0; mt < kMtW; ++mt)
+        pos[mt] = locate(rg, per, wd, (item * kMtW + mt) * 16 + (lane & 15), M, H, W);
+      float acc[kMtW][NT][4];
+#pragma unroll
+      for (int mt = 0; mt < kMtW; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+      for (int t = 0; t < ntaps; ++t) {
+        if (!resident) {
+          __syncthreads();  // the previous tap's readers are done
+          stage_weights(ws, w, n_real, k_real, kp, n0, w_rows, t, 1, ky0, kx0, nkx);
+          __syncthreads();
+        }
+        if (!has) continue;
+        const int dy = ky0 + t / nkx - 1, dx = kx0 + t % nkx - 1;
+        const int tap_bit = 3 * (dy + 1) + dx + 1, shift = dy * rg.sw + dx;
+        uint32_t a_addr[kMtW];
+#pragma unroll
+        for (int mt = 0; mt < kMtW; ++mt)
+          a_addr[mt] = ((pos[mt].taps >> tap_bit) & 1u
+                            ? rg.base + (pos[mt].srow + shift) * rg.pitch
+                            : zero_row) +
+                       (lane >> 4) * 16;
+        const uint32_t b_addr =
+            ws_addr + ((resident ? t : 0) * w_rows + w_row0 + b_row) * wpitch + b_k;
+        for (int ks = 0; ks < ksteps; ++ks) {
+          uint32_t a[kMtW][4];
+#pragma unroll
+          for (int mt = 0; mt < kMtW; ++mt) {
+            ldsm_x4(a_addr[mt] + ks * 32, a[mt]);
+            if (kRelu) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) a[mt][e] = relu_bf16x2(a[mt][e]);
+            }
+          }
+#pragma unroll
+          for (int np = 0; np < NT / 2; ++np) {
+            uint32_t b[4];
+            ldsm_x4(b_addr + np * 16 * wpitch + ks * 32, b);
+#pragma unroll
+            for (int mt = 0; mt < kMtW; ++mt) {
+              mma_bf16(acc[mt][2 * np], a[mt], b[0], b[1]);
+              mma_bf16(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
+            }
+          }
+        }
+      }
+      if (!has) continue;
+      // this lane's bias pairs: channels n0 + 8 nt + 2 (lane % 4) + {0, 1}
+      const int n = n0 + 2 * (lane % 4);
+      float bv[NT][2];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = n + 8 * nt + e;
+          bv[nt][e] = bias && nt < nt_valid && c < n_real ? bf16_bits_to_f(__ldg(bias + c)) : 0.0f;
+        }
+      // accumulator fragment: rows lane/4 and lane/4 + 8, columns 2 (lane%4) + {0, 1}
+      // of each n8 tile; epi takes a row's pairs of every tile of the pass
+#pragma unroll
+      for (int mt = 0; mt < kMtW; ++mt) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = (item * kMtW + mt) * 16 + lane / 4 + 8 * half;
+          float v[NT][2];
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              v[nt][e] = bias ? acc[mt][nt][2 * half + e] + bv[nt][e] : acc[mt][nt][2 * half + e];
+          if (row < M) epi(row, n, nt_valid, v);
+        }
+      }
+    }
+  }
+}
+
+// 256 or 512 threads, at most 128 registers a thread: two blocks of 256 an SM
+// where the shared memory allows, else one of 512.
+__global__ void __launch_bounds__(kMaxThreads, 1) fused_light_block_kernel_tc(const TcArgs p) {
+  extern __shared__ __align__(16) uint16_t tsm[];
+  const TcLayout lay(p.C, p.CB, p.H, p.W, p.TH, p.TW, p.NI, p.resident);
+  uint16_t* zs = tsm;
+  uint16_t* xs = zs + lay.zero;
+  uint16_t* ms = xs + lay.x;
+  uint16_t* ws = ms + lay.mid;
+  const int C = p.C, CB = p.CB, H = p.H, W = p.W;
+  const int cp = ceil16(C), cbp = ceil16(CB);
+  const int64_t hw = static_cast<int64_t>(H) * W;
+  const int ty0 = (blockIdx.x / p.tiles_x) * p.TH, tx0 = (blockIdx.x % p.tiles_x) * p.TW;
+  const int b0 = blockIdx.y * p.NI, ni = min(p.NI, p.B - b0);
+  const int oh = min(p.TH, H - ty0), ow = min(p.TW, W - tx0);
+  // x region: the tile and a 2-pixel halo; mid region: a 1-pixel halo; both
+  // cut at the image's edge
+  const int sy0 = max(ty0 - 2, 0), sx0 = max(tx0 - 2, 0);
+  const int xh = min(ty0 + oh + 2, H) - sy0, xw = min(tx0 + ow + 2, W) - sx0;
+  const int my0 = max(ty0 - 1, 0), mx0 = max(tx0 - 1, 0);
+  const int mh = min(ty0 + oh + 1, H) - my0, mw = min(tx0 + ow + 1, W) - mx0;
+  // taps whose window lies wholly in the padding are skipped
+  const int ky0 = H > 1 ? 0 : 1, nky = H > 1 ? 3 : 1;
+  const int kx0 = W > 1 ? 0 : 1, nkx = W > 1 ? 3 : 1;
+  const int xpitch = cp + kPad, mpitch = cbp + kPad;
+
+  for (int i = threadIdx.x; i < lay.zero / 8; i += blockDim.x)
+    reinterpret_cast<uint4*>(zs)[i] = make_uint4(0, 0, 0, 0);
+  {  // x region, [image][y][x][c], zero past C: a thread takes a position, all channels
+    const int npos = ni * xh * xw;
+    const FastDiv per(xh * xw), wd(xw);
+    for (int r = threadIdx.x; r < npos; r += blockDim.x) {
+      const int img = per.div(r), rr = r - img * xh * xw;
+      const int yy = wd.div(rr);
+      const uint16_t* src = p.x + static_cast<int64_t>(b0 + img) * C * hw +
+                            static_cast<int64_t>(sy0 + yy) * W + sx0 + rr - yy * xw;
+      uint16_t* dst = xs + r * xpitch;
+#pragma unroll 4
+      for (int c0 = 0; c0 < cp; c0 += 8) {
+        uint32_t v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = c0 + 2 * j;
+          const uint32_t lo = c < C ? __ldg(src + c * hw) : 0u;
+          const uint32_t hi = c + 1 < C ? __ldg(src + (c + 1) * hw) : 0u;
+          v[j] = lo | (hi << 16);
+        }
+        *reinterpret_cast<uint4*>(dst + c0) = make_uint4(v[0], v[1], v[2], v[3]);
+      }
+    }
+  }
+  if (p.resident)
+    stage_weights(ws, p.w1, CB, C, cp, 0, cbp, 0, nky * nkx, ky0, kx0, nkx);
+  __syncthreads();
+
+  const uint32_t zero_row = smem_u32(zs);
+  // conv1: mid = relu(bf16(conv(relu(x), w1) + b1)) at the mid region's positions
+  const Region r1{mh, mw, my0, mx0, xh, xw, sy0, sx0, smem_u32(xs), xpitch * 2};
+  const auto epi1 = [&](int row, int n, int nt_valid, const auto& v) {
+    constexpr int nts = sizeof(v) / sizeof(v[0]);
+    uint16_t* mr = ms + row * mpitch + n;
+#pragma unroll
+    for (int nt = 0; nt < nts; ++nt) {
+      if (nt >= nt_valid) break;
+      uint32_t pair = 0;  // padded channels stay 0
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (n + 8 * nt + e < CB)
+          pair |= static_cast<uint32_t>(
+                      f_to_bf16_bits(fmaxf(bf16_bits_to_f(f_to_bf16_bits(v[nt][e])), 0.0f)))
+                  << (16 * e);
+      }
+      *reinterpret_cast<uint32_t*>(mr + 8 * nt) = pair;
+    }
+  };
+  if (conv1_nt(CB) == 4)
+    conv_gemm<true, 4>(r1, ni * mh * mw, cbp, cp, ws, p.resident, p.w1, p.b1, CB, C, ky0, nky,
+                       kx0, nkx, H, W, zero_row, epi1);
+  else
+    conv_gemm<true, 2>(r1, ni * mh * mw, cbp, cp, ws, p.resident, p.w1, p.b1, CB, C, ky0, nky,
+                       kx0, nkx, H, W, zero_row, epi1);
+  __syncthreads();
+  if (p.resident) {
+    stage_weights(ws, p.w2, C, CB, cbp, 0, ceil32(C), 0, nky * nkx, ky0, kx0, nkx);
+    __syncthreads();
+  }
+
+  // conv2: y = bf16(x + (conv(mid, w2) + b2)) at the output tile's positions
+  const Region r2{oh, ow, ty0, tx0, mh, mw, my0, mx0, smem_u32(ms), mpitch * 2};
+  const FastDiv out_per(oh * ow), out_w(ow);
+  conv_gemm<false, 4>(
+      r2, ni * oh * ow, C, cbp, ws, p.resident, p.w2, p.b2, C, CB, ky0, nky, kx0, nkx, H, W,
+      zero_row, [&](int row, int n, int nt_valid, const float (&v)[4][2]) {
+        const int img = out_per.div(row);
+        const int q = row - img * oh * ow;
+        const int yy = out_w.div(q);
+        const int gy = ty0 + yy, gx = tx0 + q - yy * ow;
+        const uint16_t* xr = xs + ((img * xh + gy - sy0) * xw + gx - sx0) * xpitch + n;
+        uint16_t* yo = p.y + (static_cast<int64_t>(b0 + img) * C + n) * hw +
+                       static_cast<int64_t>(gy) * W + gx;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          if (nt >= nt_valid) break;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (n + 8 * nt + e < C)  // the last n8 tile may run past an odd C
+              yo[(8 * nt + e) * hw] = f_to_bf16_bits(bf16_bits_to_f(xr[8 * nt + e]) + v[nt][e]);
+          }
+        }
+      });
+}
+
+template <typename K>
+int allow_smem(K kernel, int smem, bool& set) {
+  if (smem > 48 * 1024 && !set) {  // above the default limit of dynamic shared memory
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    set = true;
+  }
+  return 0;
 }
 
 }  // namespace
 
-// Launches on `stream` (PyTorch's current stream) and returns
+// Both entry points launch on `stream` (PyTorch's current stream) and return
 // cudaGetLastError(): a launch that CUDA refuses never runs, and only this
-// return reports it. dtype 0 is float32, 1 is bf16; b1 and b2 may be null.
-// smem must be 4 * (C (TH+4)(TW+4) + CB (TH+2)(TW+2)) bytes.
-extern "C" int fused_light_block_forward(const void* x, const void* w1, const void* b1,
-                                         const void* w2, const void* b2, void* y, int dtype,
-                                         int64_t B, int C, int CB, int H, int W, int TH, int TW,
-                                         int smem, void* stream) {
+// return reports it. b1 and b2 may be null.
+
+// float32, the SIMT kernel. smem must be 4 * (C (TH+4)(TW+4) + CB (TH+2)(TW+2)) bytes.
+extern "C" int fused_light_block_f32_forward(const void* x, const void* w1, const void* b1,
+                                             const void* w2, const void* b2, void* y, int64_t B,
+                                             int C, int CB, int H, int W, int TH, int TW,
+                                             int smem, void* stream) {
   const int64_t need = 4 * (static_cast<int64_t>(C) * (TH + 4) * (TW + 4) +
                             static_cast<int64_t>(CB) * (TH + 2) * (TW + 2));
   if (C <= 0 || CB <= 0 || H <= 0 || W <= 0 || TH <= 0 || TW <= 0 || B > 65535 ||
       smem != need || smem > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return static_cast<int>(cudaSuccess);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, w1, b1, w2, b2, y, B, C, CB, H, W, TH, TW, smem, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, w1, b1, w2, b2, y, B, C, CB, H, W, TH, TW, smem, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  static bool smem_set = false;
+  const int err = allow_smem(fused_light_block_kernel<float>, smem, smem_set);
+  if (err) return err;
+  const int tiles_x = (W + TW - 1) / TW;
+  const int tiles_y = (H + TH - 1) / TH;
+  const dim3 grid(static_cast<unsigned>(tiles_x * tiles_y), static_cast<unsigned>(B));
+  fused_light_block_kernel<float><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w1), static_cast<const float*>(b1),
+      static_cast<const float*>(w2), static_cast<const float*>(b2), static_cast<float*>(y), C, CB,
+      H, W, TH, TW, tiles_x);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16, the tensor-core kernel: TH x TW output tiles of NI images a block of
+// `threads` (256 or 512); resident 1 keeps each conv's weights in shared
+// memory for the whole conv, 0 streams them a tap at a time. smem must be
+// TcLayout(...).bytes().
+extern "C" int fused_light_block_bf16_forward(const void* x, const void* w1, const void* b1,
+                                              const void* w2, const void* b2, void* y,
+                                              int64_t B, int C, int CB, int H, int W, int TH,
+                                              int TW, int NI, int resident, int threads,
+                                              int smem, void* stream) {
+  if (C <= 0 || CB <= 0 || H <= 0 || W <= 0 || TH <= 0 || TW <= 0 || TH > H || TW > W ||
+      NI <= 0 || (resident != 0 && resident != 1) || (threads != 256 && threads != 512) || B < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t groups = (B + NI - 1) / NI;
+  // positions a block indexes stay under 2^16 (FastDiv)
+  const int64_t positions = static_cast<int64_t>(NI) * (TH + 4) * (TW + 4);
+  if (groups > 65535 || positions >= 65536 ||
+      smem != TcLayout(C, CB, H, W, TH, TW, NI, resident).bytes() || smem > kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return static_cast<int>(cudaSuccess);
+  static bool smem_set = false;
+  const int err = allow_smem(fused_light_block_kernel_tc, smem, smem_set);
+  if (err) return err;
+  const int tiles_x = (W + TW - 1) / TW;
+  const int tiles_y = (H + TH - 1) / TH;
+  TcArgs a;
+  a.x = static_cast<const uint16_t*>(x);
+  a.w1 = static_cast<const uint16_t*>(w1);
+  a.b1 = static_cast<const uint16_t*>(b1);
+  a.w2 = static_cast<const uint16_t*>(w2);
+  a.b2 = static_cast<const uint16_t*>(b2);
+  a.y = static_cast<uint16_t*>(y);
+  a.B = static_cast<int>(B);
+  a.C = C;
+  a.CB = CB;
+  a.H = H;
+  a.W = W;
+  a.TH = TH;
+  a.TW = TW;
+  a.NI = NI;
+  a.tiles_x = tiles_x;
+  a.resident = resident;
+  const dim3 grid(static_cast<unsigned>(tiles_x * tiles_y), static_cast<unsigned>(groups));
+  fused_light_block_kernel_tc<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -19,12 +19,15 @@ Phases, one progress line each:
                uniforms at (32,100,32,32) and a ragged size, t 0.3 and 1; Philox
                statistics over 2^20 pixels (mixture frequencies, KS of a
                channel); its time against the bytes this run's picks need
-  6b. K2     - the fused light block against its plain version at ukbb192's
-               hot shapes (32,32,192,192) b=8 and (32,64,96,96) b=16, at
-               (32,192,6,6) b=48, (32,512,1,1) b=128 and a ragged shape, in
-               float32 (TF32 off) and bf16, with and without biases; its time
-               at the two hot shapes in bf16 beside the bound, the plain
-               version and the cuDNN conv pair
+  6b. K2     - the fused light block against its plain version at all seven
+               ukbb192 block shapes and at shapes whose C and b are not
+               multiples of 16, whose batch leaves a block of several images
+               short and whose weights do not fit beside a tile, in float32
+               (the SIMT kernel, TF32 off) and bf16 (the tensor-core kernel),
+               with and without biases; the bf16 kernel's time at every
+               ukbb192 shape beside the bound, the plain version and the cuDNN
+               conv pair, summed over a DSCM.forward's and an HVAE.sample's
+               launches; the float32 kernel's time at (32,32,192,192) b=8
   7. slice   - DSCM.forward do(thickness) at the full Morpho-MNIST width, bs 32,
                weights and batch from a seed: the main path with the launch
                counts read around it, parity with the CPU plain path on the same
@@ -51,8 +54,9 @@ Phases, one progress line each:
                width and depth, bs 32, weights and batch from a seed, under
                inference_mode: the main path with K2's and K1's launch counts
                against the config's; card against the CPU plain path at bs 2
-               in float32 (1e-4) and in bf16 (the transfer's bound); the time
-               of a forward and the profiler
+               in float32 (1e-4; K2's SIMT kernel, its launches counted) and
+               in bf16 (the transfer's bound); the time of a forward and the
+               profiler
   12. ukbb-sample - HVAE.sample(return_loc=False, t=0.7) on ukbb192 in bf16,
                bs 32: K2 on every covered decoder block; card against CPU in
                float32 at bs 2 with the draws injected; its time
@@ -587,8 +591,14 @@ def phase_k4():
             "shape": [b, 100, h, w]}
 
 
-K2_SHAPES = [(BS, 32, 8, 192, 192), (BS, 64, 16, 96, 96), (BS, 192, 48, 6, 6),
-             (BS, 512, 128, 1, 1), (3, 8, 2, 7, 13)]  # (B, C, b, H, W)
+# (B, C, b, H, W): every block shape of ukbb192 in order of resolution, then
+# shapes whose C and b are not multiples of 16, whose batch leaves a block of
+# several images short, and whose weights do not fit beside a tile
+UKBB_K2_SHAPES = [(BS, 32, 8, 192, 192), (BS, 64, 16, 96, 96), (BS, 96, 24, 48, 48),
+                  (BS, 128, 32, 24, 24), (BS, 160, 40, 12, 12), (BS, 192, 48, 6, 6),
+                  (BS, 512, 128, 1, 1)]
+K2_SHAPES = UKBB_K2_SHAPES + [(3, 8, 2, 7, 13), (2, 48, 12, 9, 11), (5, 24, 8, 2, 3),
+                              (2, 512, 128, 5, 4)]
 BF16_FLOPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
 
 
@@ -644,18 +654,77 @@ def k2_compare(args, got, ref):
 
 def k2_bound_ms(b, c, cb, h, w, itemsize):
     """The least time of the K2 call: x read and y written once (plus the
-    weights), over the HBM rate; 36 C b flops a pixel over the bf16 tensor
-    cores' peak. Bytes bind at every model shape."""
+    weights), over the HBM rate; 36 C b flops a pixel over the peak of the
+    storage type (bf16 tensor cores, or float32 on the CUDA cores). Returns
+    (ms, bytes, flops, "bytes" or "operations", whichever binds)."""
     nbytes = (2 * b * c * h * w + 18 * c * cb + c + cb) * itemsize
     flops = 36 * c * cb * b * h * w
-    return max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3, nbytes, flops
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / (BF16_FLOPS_PER_S if itemsize == 2 else FP32_FLOPS_PER_S)
+    return (max(t_bytes, t_ops) * 1e3, nbytes, flops,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def cudnn_pair(x, w1, w2, b1, b2):
+    """The light block as one PyTorch call a conv (cuDNN): K2's library yardstick."""
+    import torch.nn.functional as F
+
+    return x + F.conv2d(F.relu(F.conv2d(F.relu(x), w1, b1, padding=1)), w2, b2, padding=1)
+
+
+def k2_time(b, c, cb, h, w, dtype, dev, seed=SEED + 60):
+    """K2's device time at one shape with biases, beside its plain version,
+    the cuDNN conv pair and its bound. Enough input sets (x, y and the
+    weights) to fill 100 MB cycle through one CUDA graph, so every launch
+    reads from device memory and not from the 50 MB L2."""
+    import torch
+
+    from causal_gen_tpu_torch.ops.fused_block import fused_light_block, fused_light_block_ref
+
+    itemsize = torch.finfo(dtype).bits // 8
+    set_bytes = (2 * b * c * h * w + 18 * c * cb) * itemsize
+    n_sets = min(64, max(3, math.ceil(100e6 / set_bytes)))
+    sets = [k2_inputs(b, c, cb, h, w, dtype, True, dev, seed=seed + i) for i in range(n_sets)]
+    per_graph = max(6, n_sets)
+    out = {"shape": [b, c, cb, h, w], "dtype": str(dtype)[6:], "input_sets": n_sets}
+    for key, fn in (("ms", fused_light_block), ("plain_ms", fused_light_block_ref),
+                    ("library_ms", cudnn_pair)):
+        out[key] = cuda_time_ms([lambda a=a, fn=fn: fn(*a) for a in sets], reps=20,
+                                per_graph=per_graph)
+    out["bound_ms"], out["bytes"], out["flops"], out["bound_by"] = k2_bound_ms(
+        b, c, cb, h, w, itemsize)
+    return out
+
+
+def k2_blocks_by_shape(cfg, vae):
+    """{(C, b, res): [encoder blocks, decoder blocks]} that K2 covers in an
+    HVAE: a DSCM.forward launches K2 2 x encoder + 4 x decoder times at each
+    shape (bs BS), an HVAE.sample once a decoder block."""
+    res_enc = []
+    for i, st in enumerate(cfg.enc_stages):
+        if i == 0 and st.n_blocks == 0 and st.down_rate is None:
+            continue
+        res_enc += [st.res] * (st.n_blocks + (st.down_rate is not None))
+    out = {}
+    for blk, res in [(b, r) for b, r in zip(vae.encoder._blocks, res_enc) if b.k2_covered] + \
+            [(d.conv, d.resolution) for d in vae.decoder._blocks if d.conv.k2_covered]:
+        cb, c = blk._convs[0].weight.shape[:2]
+        out.setdefault((c, cb, res), [0, 0])[0 if blk in vae.encoder._blocks else 1] += 1
+    return out
 
 
 def phase_k2():
+    """K2 against its plain version at every shape of K2_SHAPES, in float32
+    (the SIMT kernel, TF32 off) and bf16 (the tensor-core kernel), with and
+    without biases; the bf16 kernel timed at every ukbb192 shape beside its
+    bound, its plain version and the cuDNN conv pair, and summed over the
+    launches of a ukbb192 DSCM.forward and HVAE.sample; the float32 kernel
+    timed at (32,32,192,192) b=8."""
     import torch
-    import torch.nn.functional as F
 
-    from causal_gen_tpu_torch.ops.fused_block import fused_light_block, fused_light_block_ref
+    from causal_gen_tpu_torch.models.hvae import HVAE
+    from causal_gen_tpu_torch.ops.fused_block import (fused_light_block, fused_light_block_ref,
+                                                      plan)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -670,45 +739,52 @@ def phase_k2():
                 torch.cuda.synchronize()
                 err, n_diff, n_beyond = k2_compare(args, got, ref)
                 checks.append({"shape": [b, c, cb, h, w], "dtype": str(dtype)[6:], "bias": bias,
+                               "plan": plan(b, c, cb, h, w, dtype)._asdict(),
                                "max_abs_err": err, "n_differ": n_diff,
                                "n_beyond_one_ulp": n_beyond, "n": got.numel()})
-    for dt in ("float32", "bfloat16"):
+    for dt, kernel in (("float32", "SIMT"), ("bfloat16", "tensor-core")):
         cs = [ch for ch in checks if ch["dtype"] == dt]
-        log("K2", f"{dt}: kernel == plain version at (B,C,b,H,W) {K2_SHAPES}, with and "
-                  f"without biases; max abs err {max(ch['max_abs_err'] for ch in cs):.3e}; "
+        log("K2", f"{dt} ({kernel} kernel): == plain version at (B,C,b,H,W) {K2_SHAPES}, with "
+                  f"and without biases; max abs err {max(ch['max_abs_err'] for ch in cs):.3e}; "
                   f"elements that differ {sum(ch['n_differ'] for ch in cs)} of "
                   f"{sum(ch['n'] for ch in cs)}"
             + (f", beyond one ulp of |y| {sum(ch['n_beyond_one_ulp'] for ch in cs)}"
                if dt == "bfloat16" else ""))
 
-    times = {}
-    for b, c, cb, h, w in K2_SHAPES[:2]:
-        # 3 input sets (x and y 75 MB each at 192^2) overflow the 50 MB L2: from device memory
-        sets = [k2_inputs(b, c, cb, h, w, torch.bfloat16, True, dev, seed=SEED + 60 + i)
-                for i in range(3)]
-        ms = cuda_time_ms([lambda a=a: fused_light_block(*a) for a in sets], reps=20, per_graph=6)
-        plain_ms = cuda_time_ms([lambda a=a: fused_light_block_ref(*a) for a in sets], reps=20,
-                                per_graph=6)
-
-        def cudnn_pair(x, w1, w2, b1, b2):
-            return x + F.conv2d(F.relu(F.conv2d(F.relu(x), w1, b1, padding=1)), w2, b2, padding=1)
-
-        library_ms = cuda_time_ms([lambda a=a: cudnn_pair(*a) for a in sets], reps=20,
-                                  per_graph=6)
-        bound_ms, nbytes, flops = k2_bound_ms(b, c, cb, h, w, 2)
-        key = f"{b}x{c}x{h}x{w}"
-        times[key] = {"shape": [b, c, cb, h, w], "ms": ms, "plain_ms": plain_ms,
-                      "library_ms": library_ms, "bound_ms": bound_ms, "bytes": nbytes,
-                      "flops": flops}
-        log("K2", f"({b},{c},{h},{w}) b={cb} bf16 with biases, from device memory: kernel "
-                  f"{ms * 1e3:.1f} us (bound {bound_ms * 1e3:.1f} us by bytes, {nbytes / 1e6:.1f} "
-                  f"MB; {flops / 1e9:.2f} GFLOP take {flops / BF16_FLOPS_PER_S * 1e6:.1f} us at "
-                  f"the bf16 peak), plain version {plain_ms * 1e3:.1f} us, cuDNN conv pair "
-                  f"{library_ms * 1e3:.1f} us")
-    hot = times[f"{BS}x32x192x192"]
-    return {"checks": checks, "times": times,
-            "max_abs_err": max(ch["max_abs_err"] for ch in checks), **{
-                k: hot[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
+    by_shape = k2_blocks_by_shape(ukbb_config(), HVAE(ukbb_config(), device="meta"))
+    if sorted((BS, c, cb, r, r) for c, cb, r in by_shape) != sorted(UKBB_K2_SHAPES):
+        raise AssertionError(f"UKBB_K2_SHAPES {UKBB_K2_SHAPES} are not ukbb192's K2 shapes "
+                             f"{sorted(by_shape)}")
+    times, per = [], {k: {"forward": 0.0, "sample": 0.0} for k in
+                      ("ms", "plain_ms", "library_ms", "bound_ms")}
+    for b, c, cb, h, w in UKBB_K2_SHAPES:
+        t = k2_time(b, c, cb, h, w, torch.bfloat16, dev)
+        enc, dec = by_shape[(c, cb, h)]
+        t.update(plan=plan(b, c, cb, h, w, torch.bfloat16)._asdict(),
+                 launches_per_forward=2 * enc + 4 * dec, launches_per_sample=dec)
+        times.append(t)
+        for k in per:
+            per[k]["forward"] += t["launches_per_forward"] * t[k]
+            per[k]["sample"] += t["launches_per_sample"] * t[k]
+        log("K2", f"({b},{c},{h},{w}) b={cb} bf16 with biases, from device memory, "
+                  f"{t['launches_per_forward']} launches a forward: kernel {t['ms'] * 1e3:.2f} us "
+                  f"(bound {t['bound_ms'] * 1e3:.2f} us by {t['bound_by']}), plain version "
+                  f"{t['plain_ms'] * 1e3:.2f} us, cuDNN conv pair {t['library_ms'] * 1e3:.2f} us")
+    log("K2", "summed over a ukbb192 DSCM.forward's launches (bf16, bs 32): kernel "
+              f"{per['ms']['forward']:.3f} ms, cuDNN conv pair {per['library_ms']['forward']:.3f} "
+              f"ms, plain version {per['plain_ms']['forward']:.3f} ms, bound "
+              f"{per['bound_ms']['forward']:.3f} ms; an HVAE.sample's: kernel "
+              f"{per['ms']['sample']:.3f} ms, pair {per['library_ms']['sample']:.3f} ms")
+    f32 = k2_time(*UKBB_K2_SHAPES[0], torch.float32, dev)
+    log("K2", f"{tuple(UKBB_K2_SHAPES[0])} float32 (SIMT kernel) with biases: kernel "
+              f"{f32['ms'] * 1e3:.1f} us (bound {f32['bound_ms'] * 1e3:.1f} us by "
+              f"{f32['bound_by']}), plain version {f32['plain_ms'] * 1e3:.1f} us, cuDNN conv "
+              f"pair (TF32 off) {f32['library_ms'] * 1e3:.1f} us")
+    hot = times[0]
+    return {"checks": checks, "times": times, "per_path": per, "f32": f32,
+            "max_abs_err_bf16": max(ch["max_abs_err"] for ch in checks if ch["dtype"] != "float32"),
+            "max_abs_err_f32": max(ch["max_abs_err"] for ch in checks if ch["dtype"] == "float32"),
+            **{k: hot[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
 
 
 def build_slice(cfg, device, state=None):
@@ -1071,20 +1147,12 @@ def ukbb_bounds_per_forward(cfg, vae):
     (k2_bound_ms at each covered block's shape in bf16; K1 28 B an element),
     of K2's decoder launches in one HVAE.sample, and of K1's and K1-bwd's
     launches in one train step (28 and 40 B an element)."""
-    res_enc = []
-    for i, st in enumerate(cfg.enc_stages):
-        if i == 0 and st.n_blocks == 0 and st.down_rate is None:
-            continue
-        res_enc += [st.res] * (st.n_blocks + (st.down_rate is not None))
-
-    def k2_ms(blk, res):
-        cb, c = blk._convs[0].weight.shape[:2]
-        return k2_bound_ms(BS, c, cb, res, res, 2)[0]
-
-    enc = sum(k2_ms(b, r) for b, r in zip(vae.encoder._blocks, res_enc) if b.k2_covered)
-    dec = sum(k2_ms(d.conv, d.resolution) for d in vae.decoder._blocks if d.conv.k2_covered)
+    by_shape = k2_blocks_by_shape(cfg, vae)
+    bound = {k: k2_bound_ms(BS, k[0], k[1], k[2], k[2], 2)[0] for k in by_shape}
     elems = sum(BS * cfg.z_dim * r * r for r in k1_res(cfg))
-    return {"k2_bound_ms_per_forward": 2 * enc + 4 * dec, "k2_bound_ms_per_sample": dec,
+    return {"k2_bound_ms_per_forward": sum((2 * e + 4 * d) * bound[k]
+                                           for k, (e, d) in by_shape.items()),
+            "k2_bound_ms_per_sample": sum(d * bound[k] for k, (_, d) in by_shape.items()),
             "k1_bound_ms_per_forward": 2 * 28 * elems / HBM_BYTES_PER_S * 1e3,
             "k1_bound_ms_per_step": 28 * elems / HBM_BYTES_PER_S * 1e3,
             "k1_bwd_bound_ms_per_step": 40 * elems / HBM_BYTES_PER_S * 1e3}
@@ -1149,8 +1217,6 @@ def phase_ukbb_slice():
     import numpy as np
     import torch
 
-    from causal_gen_tpu_torch.ops.fused_block import fused_light_block
-
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -1171,7 +1237,7 @@ def phase_ukbb_slice():
         torch.cuda.synchronize()
         counts = read_counts()
         want = dict({k: 0 for k in counts}, fused_light_block=2 * enc_k2 + 4 * dec_k2,
-                    fused_sample_kl=2 * n_sto)
+                    fused_light_block_tc=2 * enc_k2 + 4 * dec_k2, fused_sample_kl=2 * n_sto)
         if counts != want:
             raise AssertionError(f"ukbb192 DSCM.forward: launches {counts}, expected {want}")
         cf_x = res["cfs"]["x"]
@@ -1197,14 +1263,22 @@ def phase_ukbb_slice():
         for dtype in ("float32", "bfloat16"):
             c = ukbb_config(dtype, CHECK_BS)
             gpu_d, cpu_d = build_ukbb(c, "cuda", state), build_ukbb(c, "cpu", state)
+            reset_counts()  # float32 runs K2's SIMT kernel: its launches are counted here
             gpu = gpu_d.forward({k: v.to(dev) for k, v in obs_c.items()},
                                 {k: v.to(dev) for k, v in do_c.items()},
                                 noise=[e.to(dev) for e in noise])
+            torch.cuda.synchronize()
+            counts_c = read_counts()
             cpu = cpu_d.forward(obs_c, do_c, noise=noise)
             err = (gpu["cfs"]["x"].cpu() - cpu["cfs"]["x"]).abs()
             rel = {k: abs(gpu[k].item() - cpu[k].item()) / abs(cpu[k].item())
                    for k in ("elbo", "nll", "kl", "aux_loss", "loss")}
-            entry = {"cf_x_max_abs_err": err.max().item(), "rel_err": rel}
+            entry = {"cf_x_max_abs_err": err.max().item(), "rel_err": rel, "launches": counts_c}
+            kernel = "fused_light_block_simt" if dtype == "float32" else "fused_light_block_tc"
+            if counts_c[kernel] != 2 * enc_k2 + 4 * dec_k2 or \
+                    counts_c["fused_light_block"] != counts_c[kernel]:
+                raise AssertionError(f"ukbb192 {dtype} DSCM.forward bs {CHECK_BS}: launches "
+                                     f"{counts_c}, expected {2 * enc_k2 + 4 * dec_k2} of {kernel}")
             if dtype == "float32":
                 ok = err.max().item() <= 1e-4 and max(rel.values()) <= 1e-4
                 what = "cf_x within 1e-4 abs, every term within 1e-4 rel"
@@ -1245,7 +1319,7 @@ def phase_ukbb_slice():
                 f"{out['k2_bound_ms_per_sample']:.3f} ms; a train step: K1 "
                 f"{out['k1_bound_ms_per_step']:.3f} ms, K1-bwd "
                 f"{out['k1_bwd_bound_ms_per_step']:.3f} ms")
-    fused_light_block.launches = 0
+    reset_counts()
     return out
 
 
@@ -1272,7 +1346,7 @@ def phase_ukbb_sample():
         x, s = vae.sample(pa, return_loc=False, t=0.7, generator=g)
         torch.cuda.synchronize()
         counts = read_counts()
-        want = dict({k: 0 for k in counts}, fused_light_block=dec_k2)
+        want = dict({k: 0 for k in counts}, fused_light_block=dec_k2, fused_light_block_tc=dec_k2)
         if counts != want:
             raise AssertionError(f"ukbb192 HVAE.sample: launches {counts}, expected {want}")
         res = cfg.input_res
@@ -1293,7 +1367,13 @@ def phase_ukbb_sample():
                                   .astype(np.float32)) for r in k1_res(c)]
         noise.append(torch.from_numpy(rng.standard_normal((CHECK_BS, 1, res, res))
                                       .astype(np.float32)))
+        reset_counts()
         got = gpu_m.sample(pa_c.to(dev), False, 0.7, noise=iter([e.to(dev) for e in noise]))
+        torch.cuda.synchronize()
+        out["launches_f32_check"] = read_counts()
+        if out["launches_f32_check"]["fused_light_block_simt"] != dec_k2:
+            raise AssertionError(f"ukbb192 HVAE.sample float32: launches "
+                                 f"{out['launches_f32_check']}, expected {dec_k2} of the SIMT K2")
         ref = cpu_m.sample(pa_c, False, 0.7, noise=iter(noise))
         err = max((a.cpu() - b).abs().max().item() for a, b in zip(got, ref))
         if err > 1e-4:
@@ -1366,7 +1446,7 @@ def phase_ukbb_train():
     m = train_step(cfg, st, b, generator=gen)
     torch.cuda.synchronize()
     counts = read_counts()
-    want = dict(expected_counts(cfg, 1), fused_light_block=0)
+    want = expected_counts(cfg, 1)
     if counts != want or not math.isfinite(float(m["elbo"])):
         raise AssertionError(f"ukbb192 train step: launches {counts}, expected {want}; {m}")
     log("ukbb-train", f"ukbb192 bf16 train step bs {BS}: launches {counts}; elbo "
@@ -1432,6 +1512,7 @@ def reset_counts():
     for fn in (fused_sample_kl, fused_sample_kl_bwd, dmol_logprob, dmol_loss_bwd, dmol_sample,
                fused_light_block):
         fn.launches = 0
+    fused_light_block.launches_tc = fused_light_block.launches_simt = 0
 
 
 def read_counts():
@@ -1444,7 +1525,9 @@ def read_counts():
             "fused_sample_kl_bwd": fused_sample_kl_bwd.launches,
             "dmol_loss": dmol_logprob.launches, "dmol_loss_bwd": dmol_loss_bwd.launches,
             "dmol_sample": dmol_sample.launches,
-            "fused_light_block": fused_light_block.launches}
+            "fused_light_block": fused_light_block.launches,
+            "fused_light_block_tc": fused_light_block.launches_tc,
+            "fused_light_block_simt": fused_light_block.launches_simt}
 
 
 def expected_counts(cfg, train_steps, eval_batches=0):
@@ -1454,7 +1537,7 @@ def expected_counts(cfg, train_steps, eval_batches=0):
     return {"fused_sample_kl": n_sto * fwd, "fused_sample_kl_bwd": n_sto * train_steps * cfg.accu_steps,
             "dmol_loss": fwd if dmol else 0,
             "dmol_loss_bwd": train_steps * cfg.accu_steps if dmol else 0, "dmol_sample": 0,
-            "fused_light_block": 0}
+            "fused_light_block": 0, "fused_light_block_tc": 0, "fused_light_block_simt": 0}
 
 
 def phase_train(name):
@@ -1682,15 +1765,19 @@ def main() -> int:
                     "HVAE.sample ukbb192 bf16": uk_samp["launches"],
                     "train_step ukbb192 bf16": uk_train["launches"]})
 
-    def launches(kernel):
-        return sum(p.get(kernel, 0) for p in by_path.values())
+    # K2's float32 (SIMT) kernel runs on no bf16 main path: its launches are
+    # those of the float32 ukbb192 card-vs-CPU checks, each counted from 0
+    f32_paths = {"DSCM.forward ukbb192 float32 bs 2 (card vs CPU)":
+                 uk["card_vs_cpu"]["float32"]["launches"],
+                 "HVAE.sample ukbb192 float32 bs 2 (card vs CPU)": uk_samp["launches_f32_check"]}
 
-    def row(kernel, source, replaces, held_by, m, **extra):
+    def row(kernel, source, replaces, held_by, m, paths=by_path, **extra):
         return {"name": kernel, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches(kernel), "max_abs_err": m["max_abs_err"], "ms": m["ms"],
-                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": "bytes",
+                "launches": sum(c.get(kernel, 0) for c in paths.values()),
+                "max_abs_err": m["max_abs_err"], "ms": m["ms"], "plain_ms": m["plain_ms"],
+                "bound_ms": m["bound_ms"], "bound_by": m.get("bound_by", "bytes"),
                 "library_ms": m.get("library_ms"), "held_by": held_by,
-                "launches_by_path": {p: c.get(kernel, 0) for p, c in by_path.items()}, **extra}
+                "launches_by_path": {p: c.get(kernel, 0) for p, c in paths.items()}, **extra}
 
     kernels = [
         row("fused_sample_kl", "causal_gen_tpu_torch/csrc/sample_kl.cu",
@@ -1714,12 +1801,18 @@ def main() -> int:
             "phase K4 (plain version with the same uniforms at (32,100,32,32) and a ragged "
             "size, t 0.3 and 1; Philox statistics over 2^20 pixels)", k4,
             ms_injected=k4["ms_injected"], bound_ms_dense=k4["bound_ms_dense"]),
-        row("fused_light_block", "causal_gen_tpu_torch/csrc/fused_block.cu",
+        row("fused_light_block_tc", "causal_gen_tpu_torch/csrc/fused_block.cu",
             "causal_gen_tpu/ops/fused_block.py:190",
-            "phase K2 (plain version at (B,C,b,H,W) " + ", ".join(map(str, K2_SHAPES)) +
-            " in float32 and bf16, with and without biases); ms, plain_ms, library_ms "
-            "(cuDNN conv pair) and bound_ms at (32,32,192,192) b=8 bf16", k2,
-            times=k2["times"]),
+            "phase K2 (bf16 tensor-core kernel; plain version at (B,C,b,H,W) " +
+            ", ".join(map(str, K2_SHAPES)) + ", with and without biases); ms, plain_ms, "
+            "library_ms (cuDNN conv pair) and bound_ms at (32,32,192,192) b=8; times holds "
+            "every ukbb192 shape", dict(k2, max_abs_err=k2["max_abs_err_bf16"]),
+            times=k2["times"], per_path=k2["per_path"]),
+        row("fused_light_block_simt", "causal_gen_tpu_torch/csrc/fused_block.cu",
+            "causal_gen_tpu/ops/fused_block.py:190",
+            "phase K2 (float32 SIMT kernel, TF32 off; plain version at the same shapes, with "
+            "and without biases); ms, plain_ms, library_ms and bound_ms at (32,32,192,192) b=8",
+            dict(k2["f32"], max_abs_err=k2["max_abs_err_f32"]), paths=f32_paths),
     ]
     missing = [k["name"] for k in kernels if k["launches"] == 0]
     if missing:

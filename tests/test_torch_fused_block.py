@@ -9,8 +9,11 @@ mid once and y once, so the two differ by about one bf16 ulp of the block's
 largest output; the check is 2 ulps of max |y| (bf16 keeps 8 significant
 bits, one ulp of v is 2^(floor(log2 |v|) - 7)).
 
-The kernel itself runs only on the card: tests/test_torch_fused_block_gpu.py
-and chip_smoke.py's K2 phase hold it against this plain version.
+The kernels themselves run only on the card: tests/test_torch_fused_block_gpu.py
+and chip_smoke.py's K2 phase hold them against this plain version. Here the
+launch planner, a pure function, is held to what the kernels need: the SIMT
+kernel's tile for float32, and for bf16 the tensor-core kernel's tile, images
+a block, channels padded to the MMA's 16, threads and shared memory.
 """
 
 import jax
@@ -153,3 +156,61 @@ def test_tiles_fit_shared_memory(c, cb, h, w):
     th, tw, smem = k2.tile_for(c, cb, h, w)
     assert 1 <= th <= min(h, 16) and 1 <= tw <= min(w, 16)
     assert smem == k2.smem_bytes(c, cb, th, tw) <= k2.SMEM_TARGET <= k2.SMEM_LIMIT
+
+
+UKBB_SHAPES = [(32, 32, 8, 192, 192), (32, 64, 16, 96, 96), (32, 96, 24, 48, 48),
+               (32, 128, 32, 24, 24), (32, 160, 40, 12, 12), (32, 192, 48, 6, 6),
+               (32, 512, 128, 1, 1)]  # (B, C, b, H, W) of every block K2 covers in ukbb192
+ODD_SHAPES = [(3, 8, 2, 7, 13), (2, 48, 12, 9, 11), (5, 24, 8, 2, 3), (2, 512, 128, 5, 4),
+              (1, 3, 1, 1, 1), (20, 512, 128, 1, 1)]
+
+
+@pytest.mark.parametrize("shape", UKBB_SHAPES + ODD_SHAPES)
+def test_bf16_plan_fits_the_tensor_core_kernel(shape):
+    """bf16 takes the tensor-core kernel: channels padded to the MMA's k of
+    16, a tile inside the image, several images a block only where the tile
+    is the whole image, shared memory as the kernel lays it out and within
+    227 KB, 256 threads where two blocks fit an SM and 512 where one does."""
+    b, c, cb, h, w = shape
+    p = k2.plan(b, c, cb, h, w, torch.bfloat16)
+    assert p.kernel == "tc"
+    assert p.cp % 16 == 0 and c <= p.cp < c + 16 and p.cbp % 16 == 0 and cb <= p.cbp < cb + 16
+    assert 1 <= p.th <= h and 1 <= p.tw <= w and p.th * p.tw <= k2.TC_MAX_AREA
+    assert 1 <= p.ni <= b and (p.ni == 1 or (p.th, p.tw) == (h, w))
+    assert p.smem == k2.tc_smem_bytes(c, cb, h, w, p.th, p.tw, p.ni, p.staging == "resident")
+    assert p.smem <= k2.SMEM_LIMIT
+    assert p.threads == (256 if p.smem <= k2.SMEM_TWO_BLOCKS else 512)
+    if shape in UKBB_SHAPES:
+        assert p.staging == "resident"
+
+
+def test_plan_shapes_at_ukbb192_and_past_the_shared_memory():
+    """The tiles the planner picks for ukbb192, the shared memory of the
+    hottest shape counted by hand, the centre tap alone at 1x1 and weights
+    that must be streamed when they do not fit beside a tile."""
+    tiles = [k2.plan(*s, torch.bfloat16)[1:4] for s in UKBB_SHAPES]
+    assert tiles == [(16, 32, 1), (16, 32, 1), (12, 24, 1), (12, 12, 1), (6, 6, 1), (6, 6, 1),
+                     (1, 1, 16)]
+    # 16 x 32 tile of (32,32,192,192) b=8, in bf16 elements: a zero row of 32 + 8;
+    # x 20 x 36 positions of 32 + 8; mid 18 x 34 of 16 + 8; the larger conv's
+    # weights, 9 taps x 32 rows x (16 + 8)
+    assert k2.plan(*UKBB_SHAPES[0], torch.bfloat16).smem == 2 * (
+        40 + 20 * 36 * 40 + 18 * 34 * 24 + 9 * 32 * 24)
+    # 1x1: 16 images, only the centre tap's weights: max(128 x 520, 512 x 136)
+    assert k2.plan(*UKBB_SHAPES[6], torch.bfloat16).smem == 2 * (
+        520 + 16 * 520 + 16 * 136 + max(128 * 520, 512 * 136))
+    assert k2.plan(2, 512, 128, 5, 4, torch.bfloat16).staging == "streamed"
+    assert k2.plan(1, 4096, 1024, 3, 3, torch.bfloat16).smem > k2.SMEM_LIMIT  # refused
+
+
+@pytest.mark.parametrize("shape", UKBB_SHAPES + ODD_SHAPES)
+def test_float32_plan_is_the_simt_kernel(shape):
+    b, c, cb, h, w = shape
+    p = k2.plan(b, c, cb, h, w, torch.float32)
+    assert p.kernel == "simt" and p.staging == "global" and p.ni == 1 and p.threads == 256
+    assert (p.th, p.tw, p.smem) == k2.tile_for(c, cb, h, w) and (p.cp, p.cbp) == (c, cb)
+
+
+def test_plan_refuses_a_dtype_without_a_kernel():
+    with pytest.raises(ValueError, match="no kernel"):
+        k2.plan(2, 8, 2, 5, 5, torch.float16)

@@ -1,5 +1,8 @@
-"""K2 on the card: the fused light-block kernel against its plain version,
-what its wrapper refuses, and the light Block's path rule on CUDA.
+"""K2 on the card: both kernels (bf16 on the tensor cores, float32 SIMT)
+against their plain version at every ukbb192 block shape, at batch 1, at
+batches that leave a block of several images short, and at shapes whose
+channels are not multiples of 16 or whose weights must be streamed; what the
+wrapper refuses; and the light Block's path rule on CUDA.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no JAX (tests/conftest.py does), hence:
@@ -15,8 +18,8 @@ import pytest
 import torch
 
 from causal_gen_tpu_torch.models.blocks import Block
-from causal_gen_tpu_torch.ops.fused_block import fused_light_block, fused_light_block_ref
-from chip_smoke import bf16_ulp, k2_compare, k2_inputs
+from causal_gen_tpu_torch.ops.fused_block import fused_light_block, fused_light_block_ref, plan
+from chip_smoke import UKBB_K2_SHAPES, bf16_ulp, k2_compare, k2_inputs
 
 torch.set_num_threads(1)
 
@@ -30,15 +33,24 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(2, 32, 8, 40, 36), (3, 8, 2, 7, 13), (2, 192, 48, 6, 6),
-                                   (2, 512, 128, 1, 1)])
+@pytest.mark.parametrize("shape", UKBB_K2_SHAPES + [
+    (2, 32, 8, 40, 36), (1, 32, 8, 40, 36), (1, 512, 128, 1, 1),  # ragged tiles; batch 1
+    (20, 512, 128, 1, 1), (5, 24, 8, 2, 3),  # several images a block, the last block short
+    (3, 8, 2, 7, 13), (2, 48, 12, 9, 11),  # C and b not multiples of 16
+    (2, 512, 128, 5, 4)])  # weights streamed a tap at a time
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bias", [False, True])
 def test_kernel_matches_plain_version(cuda, shape, dtype, bias):
+    """bf16 launches the tensor-core kernel, float32 the SIMT kernel, each
+    once, within k2_compare's tolerance of the plain version."""
     args = k2_inputs(*shape, dtype, bias, cuda, seed=3)
-    fused_light_block.launches = 0
+    fused_light_block.launches = fused_light_block.launches_tc = 0
+    fused_light_block.launches_simt = 0
     got = fused_light_block(*args)
-    assert fused_light_block.launches == 1
+    tc = dtype == torch.bfloat16
+    assert (fused_light_block.launches, fused_light_block.launches_tc,
+            fused_light_block.launches_simt) == (1, int(tc), int(not tc))
+    assert plan(*shape, dtype).kernel == ("tc" if tc else "simt")
     ref = fused_light_block_ref(*args)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == ref.shape
