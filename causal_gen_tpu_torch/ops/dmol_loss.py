@@ -4,7 +4,9 @@ Port of ``dmol_loss_pallas`` (causal_gen_tpu/ops/pallas_kernels.py:230, kernel
 ``_dmol_kernel`` at :158). The JAX package takes the backward by autodiff of
 the pure op (``_dmol_bwd``, :262-269); here both directions are CUDA C++
 kernels for sm_90a in ``csrc/dmol_loss.cu``, built by ``ops/build.py`` and
-bound with ctypes, behind one ``torch.autograd.Function``.
+bound with ctypes, behind one ``torch.autograd.Function``. ``plan`` chooses
+their launch: one thread for each (mixture, pixel) of a tile of consecutive
+flat pixels.
 
 ``dmol_loss`` launches the kernels for CUDA tensors and runs the plain op,
 ``ops/dmol.py::discretized_mix_logistic_loss``, with autograd for CPU tensors.
@@ -19,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +29,35 @@ from torch import Tensor
 
 from causal_gen_tpu_torch.ops import build
 from causal_gen_tpu_torch.ops.dmol import discretized_mix_logistic_loss, dmol_logprob_pixels
+
+MIXTURES = 10  # K compiled into csrc/dmol_loss.cu (checked against the library)
+# P, consecutive flat pixels a block, as compiled into csrc/dmol_loss.cu
+# (FWD_TILE, BWD_TILE): the tiles that timed fastest on an H100 (PERF.md §6)
+TILE_FORWARD = 64
+TILE_BACKWARD = 32
+
+
+class Plan(NamedTuple):
+    """A launch of one of K3's kernels."""
+    tile: int  # P consecutive flat pixels a block, one thread each (mixture, pixel)
+    threads: int  # K P a block
+    blocks: int  # one a tile, the last one ragged
+    shared_bytes: int  # dynamic: [K][P] totals, [K][P] logits, [P] and [P] sums
+    straddles: bool  # some tile holds pixels of two images
+
+
+def plan(n_pix: int, hw: int, backward: bool = False) -> Plan:
+    """The launch of K3's forward (or backward) kernel on n_pix = B*H*W
+    pixels of images of hw = H*W pixels: tiles of P consecutive flat pixels,
+    one block a tile. A tile straddles two images where hw is not a multiple
+    of P; its threads find their image each."""
+    if n_pix < 0 or hw < 0 or (n_pix and (hw == 0 or n_pix % hw)):
+        raise ValueError(f"dmol_loss: {n_pix} pixels are not whole images of {hw}")
+    if n_pix >= 2 ** 31:
+        raise ValueError(f"dmol_loss: {n_pix} pixels; the kernels take fewer than 2^31")
+    p = TILE_BACKWARD if backward else TILE_FORWARD
+    return Plan(p, MIXTURES * p, -(-n_pix // p), (2 * MIXTURES + 2) * p * 4,
+                n_pix > hw and hw % p != 0)
 
 
 def dmol_loss_bwd_ref(x: Tensor, l: Tensor, g: Tensor, low_bit: bool = False) -> Tensor:
@@ -95,10 +127,9 @@ def _bind():
     """The kernels' C entry points, built and loaded on first use."""
     lib = build.load("dmol_loss")
     fwd, bwd = lib.dmol_forward, lib.dmol_backward
-    fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-                                            ctypes.c_void_p]
-    bwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-                                            ctypes.c_void_p]
+    tail = [ctypes.c_int64, ctypes.c_int64] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fwd.argtypes = [ctypes.c_void_p] * 3 + tail
+    bwd.argtypes = [ctypes.c_void_p] * 4 + tail
     fwd.restype = bwd.restype = ctypes.c_int
     lib.dmol_num_mixtures.restype = ctypes.c_int
     return fwd, bwd, lib.dmol_num_mixtures()
@@ -114,6 +145,8 @@ def _check(x: Tensor, l: Tensor) -> None:
         raise ValueError(f"dmol_loss: x {tuple(x.shape)} and l {tuple(l.shape)} are not "
                          "(B,3,H,W) and (B,10K,H,W)")
     k = _bind()[2]
+    if k != MIXTURES:
+        raise RuntimeError(f"dmol_loss: the library has {k} mixtures; plan counts {MIXTURES}")
     if l.shape[1] != 10 * k:
         raise ValueError(f"dmol_loss: the kernel is built for {k} mixtures "
                          f"({10 * k} channels); l has {l.shape[1]}")
@@ -132,8 +165,10 @@ def dmol_logprob(x: Tensor, l: Tensor, low_bit: bool = False) -> Tensor:
     _check(x, l)
     b, _, h, w = x.shape
     out = torch.empty((b, h, w), device=l.device, dtype=torch.float32)
+    pl = plan(b * h * w, h * w)
     err = _bind()[0](x.data_ptr(), l.data_ptr(), out.data_ptr(), b * h * w, h * w,
-                     int(low_bit), torch.cuda.current_stream(l.device).cuda_stream)
+                     int(low_bit), pl.tile, pl.blocks, pl.shared_bytes,
+                     torch.cuda.current_stream(l.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dmol_forward launch failed: cudaError {err}")
     dmol_logprob.launches += 1
@@ -155,8 +190,10 @@ def dmol_loss_bwd(x: Tensor, l: Tensor, g: Tensor, low_bit: bool = False) -> Ten
                          f"expected float32 ({b},) on {l.device}")
     g = g.contiguous()
     dl = torch.empty_like(l)
+    pl = plan(b * h * w, h * w, backward=True)
     err = _bind()[1](x.data_ptr(), l.data_ptr(), g.data_ptr(), dl.data_ptr(), b * h * w,
-                     h * w, int(low_bit), torch.cuda.current_stream(l.device).cuda_stream)
+                     h * w, int(low_bit), pl.tile, pl.blocks, pl.shared_bytes,
+                     torch.cuda.current_stream(l.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dmol_backward launch failed: cudaError {err}")
     dmol_loss_bwd.launches += 1

@@ -14,7 +14,9 @@ Phases, one progress line each:
                the same shapes, with injected eps and on the Philox path; its time
   5. K3      - the DMoL loss kernels, forward and backward, against the plain op
                and its autograd at (32,100,32,32) and at a ragged size with
-               pixels at -1, 1 and the 1e-5 switch; their times
+               pixels at -1, 1 and the 1e-5 switch, low_bit False and True;
+               their launch plans, registers, spills and SASS instruction floor;
+               their times and a digest of their outputs
   6. K4      - the DMoL sampler against its plain version with the same
                uniforms at (32,100,32,32) and a ragged size, t 0.3 and 1; Philox
                statistics over 2^20 pixels (mixture frequencies, KS of a
@@ -350,52 +352,172 @@ def torch_all_close(got, ref, rtol, atol):
     return ((got - ref).abs() <= atol + rtol * ref.abs()).all().item()
 
 
+SMS = 132  # H100 SXM streaming multiprocessors
+WARP_INSTRUCTIONS_PER_SM_CLOCK = 4  # one a clock in each of an SM's 4 sub-partitions
+
+
+def sass_phases(sass, kernel):
+    """Instruction counts of the kernel whose mangled name contains
+    ``kernel`` in ``cuobjdump -sass`` text: the instructions up to its last
+    EXIT (the slow-path subroutines placed after it left out), NOPs left out,
+    split at each BAR.SYNC into phases. Returns [(instructions, MUFU)] a
+    phase. Every branch is counted: a warp whose threads take one side of a
+    branch runs fewer, a warp whose threads split runs both."""
+    import re
+
+    for func in re.split(r"\n\s*Function : ", sass)[1:]:
+        if kernel not in func.split()[0]:
+            continue
+        ops = [m for m in re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                                     func) if m != "NOP"]
+        ops = ops[:max(i for i, op in enumerate(ops) if op == "EXIT") + 1]
+        cuts = [0] + [i + 1 for i, op in enumerate(ops) if op.startswith("BAR.SYNC")] + [len(ops)]
+        return [(b - a, sum(op.startswith("MUFU") for op in ops[a:b]))
+                for a, b in zip(cuts, cuts[1:])]
+    raise AssertionError(f"no kernel {kernel} in the SASS")
+
+
+def k3_resources(src, kernels):
+    """Registers, spills and the SASS instruction count of K3's kernels, from the
+    source ``src`` compiled to a cubin with the port's flags, ``nvcc
+    --resource-usage`` and ``cuobjdump -sass``. ``kernels`` maps a name part
+    of each kernel to the threads a pixel of each of its phases (one thread
+    a pixel: [1]; one a (mixture, pixel) with a per-pixel reduction between
+    barriers: [10, 1] or [10, 1, 10]). Returns, per kernel: registers, spill
+    bytes, instructions and MUFU by phase, and warp instructions a pixel."""
+    import re
+    import tempfile
+
+    from causal_gen_tpu_torch.ops import build
+
+    nvcc = build.nvcc_path()
+    flags = [f for f in build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    with tempfile.TemporaryDirectory() as tmp:
+        cubin = os.path.join(tmp, "k3.cubin")
+        usage = subprocess.run([nvcc, *flags, "-cubin", "--resource-usage", "-o", cubin, src],
+                               capture_output=True, text=True, timeout=300, check=True)
+        sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", cubin],
+                              capture_output=True, text=True, timeout=120, check=True).stdout
+    text = usage.stdout + usage.stderr
+    out = {}
+    for kernel, threads in kernels.items():
+        block = text[text.index(kernel, text.index("Compiling entry function")):]
+        regs = int(re.search(r"Used (\d+) registers", block).group(1))
+        stores, loads = map(int, re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                           block).groups())
+        phases = sass_phases(sass, kernel)
+        if len(phases) != len(threads):
+            raise AssertionError(f"{kernel}: {len(phases)} phases in the SASS, {len(threads)} "
+                                 "expected")
+        out[kernel] = {"registers": regs, "spill_stores": stores, "spill_loads": loads,
+                       "instructions_by_phase": [n for n, _ in phases],
+                       "mufu_by_phase": [m for _, m in phases], "threads_a_pixel": threads,
+                       "warp_instructions_a_pixel": sum(n * t for (n, _), t in
+                                                        zip(phases, threads)) / 32}
+    return out
+
+
+def max_sm_clock_hz():
+    """The card's highest SM clock (nvidia-smi clocks.max.sm)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def k3_time(b, h, w, dev):
+    """K3's forward and backward kernels and their plain versions at (b, 100,
+    h, w) from device memory: 8 input sets (105 MB of l) overflow the 50 MB
+    L2. Also the SHA-256 of the kernels' outputs on those sets, so that two
+    trees' kernels can be held bit for bit against each other."""
+    import hashlib
+
+    import torch
+
+    from causal_gen_tpu_torch.ops.dmol import dmol_logprob_pixels
+    from causal_gen_tpu_torch.ops.dmol_loss import dmol_logprob, dmol_loss_bwd, dmol_loss_bwd_ref
+
+    sets = [k3_inputs(b, h, w, device=dev, seed=SEED + 10 + i) for i in range(8)]
+    gs = [torch.randn(b, generator=torch.Generator().manual_seed(i)).to(dev) for i in range(8)]
+    fwd = [lambda x=x, l=l: dmol_logprob(x, l) for x, l in sets]
+    bwd = [lambda x=x, l=l, g=g: dmol_loss_bwd(x, l, g) for (x, l), g in zip(sets, gs)]
+    out = {"fwd_ms": cuda_time_ms(fwd),
+           "fwd_plain_ms": cuda_time_ms([lambda x=x, l=l: dmol_logprob_pixels(x, l)
+                                         for x, l in sets]),
+           "bwd_ms": cuda_time_ms(bwd),
+           "bwd_plain_ms": cuda_time_ms([lambda x=x, l=l, g=g: dmol_loss_bwd_ref(x, l, g)
+                                         for (x, l), g in zip(sets, gs)])}
+    for key, fns in (("fwd_sha256", fwd), ("bwd_sha256", bwd)):
+        digest = hashlib.sha256()
+        for fn in fns:
+            digest.update(fn().cpu().numpy().tobytes())
+        out[key] = digest.hexdigest()
+    return out
+
+
 def phase_k3():
     import torch
 
+    from causal_gen_tpu_torch.ops import build
     from causal_gen_tpu_torch.ops.dmol import discretized_mix_logistic_loss, dmol_logprob_pixels
-    from causal_gen_tpu_torch.ops.dmol_loss import (dmol_logprob, dmol_loss, dmol_loss_bwd,
-                                                    dmol_loss_bwd_ref)
+    from causal_gen_tpu_torch.ops.dmol_loss import dmol_logprob, dmol_loss, plan
 
     dev = torch.device("cuda")
     err_fwd = err_bwd = 0.0
     shapes = [(BS, 32, 32), (3, 7, 13)]
-    for shape in shapes:
-        x, l = k3_inputs(*shape, device=dev)
-        lp, lp_ref = dmol_logprob(x, l), dmol_logprob_pixels(x, l)
-        loss, loss_ref = dmol_loss(x, l), discretized_mix_logistic_loss(x, l)
-        torch.cuda.synchronize()
-        for got, ref, what in ((lp, lp_ref, "per-pixel log-prob"), (loss, loss_ref, "loss")):
-            if not torch_all_close(got, ref, 1e-5, 1e-5):
-                raise AssertionError(f"K3 forward ({what}) disagrees with the plain op at {shape}: "
-                                     f"max err {(got - ref).abs().max().item():.3e}")
-        err_fwd = max(err_fwd, (lp - lp_ref).abs().max().item())
-        g = torch.randn(shape[0], generator=torch.Generator().manual_seed(SEED + 7)).to(dev)
-        leaf = l.clone().requires_grad_()
-        (discretized_mix_logistic_loss(x, leaf) * g).sum().backward()
-        leaf_k = l.clone().requires_grad_()
-        (dmol_loss(x, leaf_k) * g).sum().backward()
-        torch.cuda.synchronize()
-        if not k3_grad_close(leaf_k.grad, leaf.grad):
-            raise AssertionError(f"K3 backward disagrees with autograd of the plain op at {shape}: "
-                                 f"max err {(leaf_k.grad - leaf.grad).abs().max().item():.3e} "
-                                 f"(max |ref| {leaf.grad.abs().max().item():.3e})")
-        err_bwd = max(err_bwd, (leaf_k.grad - leaf.grad).abs().max().item())
+    for low_bit in (False, True):
+        for shape in shapes:
+            x, l = k3_inputs(*shape, device=dev)
+            lp, lp_ref = dmol_logprob(x, l, low_bit), dmol_logprob_pixels(x, l, low_bit)
+            loss = dmol_loss(x, l, low_bit)
+            loss_ref = discretized_mix_logistic_loss(x, l, low_bit)
+            torch.cuda.synchronize()
+            for got, ref, what in ((lp, lp_ref, "per-pixel log-prob"), (loss, loss_ref, "loss")):
+                if not torch_all_close(got, ref, 1e-5, 1e-5):
+                    raise AssertionError(
+                        f"K3 forward ({what}) disagrees with the plain op at {shape}, low_bit "
+                        f"{low_bit}: max err {(got - ref).abs().max().item():.3e}")
+            err_fwd = max(err_fwd, (lp - lp_ref).abs().max().item())
+            g = torch.randn(shape[0], generator=torch.Generator().manual_seed(SEED + 7)).to(dev)
+            leaf = l.clone().requires_grad_()
+            (discretized_mix_logistic_loss(x, leaf, low_bit) * g).sum().backward()
+            leaf_k = l.clone().requires_grad_()
+            (dmol_loss(x, leaf_k, low_bit) * g).sum().backward()
+            torch.cuda.synchronize()
+            if not k3_grad_close(leaf_k.grad, leaf.grad):
+                raise AssertionError(
+                    f"K3 backward disagrees with autograd of the plain op at {shape}, low_bit "
+                    f"{low_bit}: max err {(leaf_k.grad - leaf.grad).abs().max().item():.3e} "
+                    f"(max |ref| {leaf.grad.abs().max().item():.3e})")
+            err_bwd = max(err_bwd, (leaf_k.grad - leaf.grad).abs().max().item())
     log("K3", f"forward == plain op within 1e-5*(1+|ref|), backward == its autograd within "
-              f"1e-5|ref| + 1e-6 max|ref|, at {shapes} (pixels at -1, 1 and the 1e-5 switch); "
-              f"max abs err forward {err_fwd:.3e}, backward {err_bwd:.3e}")
+              f"1e-5|ref| + 1e-6 max|ref|, at {shapes} (pixels at -1, 1 and the 1e-5 switch), "
+              f"low_bit False and True; max abs err forward {err_fwd:.3e}, backward "
+              f"{err_bwd:.3e}")
 
     b, h, w = shapes[0]
     pix = b * h * w
-    # 8 input sets (105 MB of l) overflow the 50 MB L2: from device memory
-    sets = [k3_inputs(b, h, w, device=dev, seed=SEED + 10 + i) for i in range(8)]
-    gs = [torch.randn(b, generator=torch.Generator().manual_seed(i)).to(dev) for i in range(8)]
-    fwd_ms = cuda_time_ms([lambda x=x, l=l: dmol_logprob(x, l) for x, l in sets])
-    fwd_plain_ms = cuda_time_ms([lambda x=x, l=l: dmol_logprob_pixels(x, l) for x, l in sets])
-    bwd_ms = cuda_time_ms([lambda x=x, l=l, g=g: dmol_loss_bwd(x, l, g)
-                           for (x, l), g in zip(sets, gs)])
-    bwd_plain_ms = cuda_time_ms([lambda x=x, l=l, g=g: dmol_loss_bwd_ref(x, l, g)
-                                 for (x, l), g in zip(sets, gs)])
+    plans = {f"{direction} {s}": plan(s[0] * s[1] * s[2], s[1] * s[2],
+                                      backward=direction == "backward")._asdict()
+             for direction in ("forward", "backward") for s in shapes}
+    for key, pl in plans.items():
+        log("K3", f"plan {key}: P {pl['tile']}, {pl['threads']} threads, {pl['blocks']} blocks, "
+                  f"{pl['shared_bytes']} B shared, straddles images {pl['straddles']}")
+    res = k3_resources(str(build.SOURCES["dmol_loss"]),
+                       {"dmol_forward_kernel": [10, 1], "dmol_backward_kernel": [10, 1, 10]})
+    clock = max_sm_clock_hz()
+    for kernel, r in res.items():
+        r["instruction_floor_ms"] = pix * r["warp_instructions_a_pixel"] / (
+            SMS * WARP_INSTRUCTIONS_PER_SM_CLOCK * clock) * 1e3
+        log("K3", f"{kernel}: {r['registers']} registers, spills {r['spill_stores']} B stored "
+                  f"/ {r['spill_loads']} B loaded; SASS instructions by phase "
+                  f"{r['instructions_by_phase']} (MUFU {r['mufu_by_phase']}) at "
+                  f"{r['threads_a_pixel']} threads a pixel: {r['warp_instructions_a_pixel']:.1f} "
+                  f"warp instructions a pixel, every branch counted; at {SMS} SMs x "
+                  f"{WARP_INSTRUCTIONS_PER_SM_CLOCK} warp instructions a clock and "
+                  f"{clock / 1e6:.0f} MHz "
+                  f"{r['instruction_floor_ms'] * 1e3:.2f} us at ({b},100,{h},{w})")
+    t = k3_time(b, h, w, dev)
     # bytes: forward reads x (12 B) and l (400 B) and writes the log-prob
     # (4 B) a pixel; backward reads x and l and g (4 B an image) and writes
     # d/dl (400 B). Operations: at least ~1,000 float32 ops a pixel either
@@ -403,15 +525,19 @@ def phase_k3():
     fwd_bytes, bwd_bytes = 416 * pix, 812 * pix + 4 * b
     fwd_bound = max(fwd_bytes / HBM_BYTES_PER_S, 1000 * pix / FP32_FLOPS_PER_S) * 1e3
     bwd_bound = max(bwd_bytes / HBM_BYTES_PER_S, 1000 * pix / FP32_FLOPS_PER_S) * 1e3
-    log("K3", f"({b},100,{h},{w}), from device memory: forward {fwd_ms * 1e3:.2f} us (bound "
-              f"{fwd_bound * 1e3:.2f} us), plain {fwd_plain_ms * 1e3:.2f} us; backward "
-              f"{bwd_ms * 1e3:.2f} us (bound {bwd_bound * 1e3:.2f} us), plain closed form "
-              f"{bwd_plain_ms * 1e3:.2f} us")
-    return {"fwd": {"max_abs_err": err_fwd, "ms": fwd_ms, "plain_ms": fwd_plain_ms,
-                    "bound_ms": fwd_bound, "bytes": fwd_bytes},
-            "bwd": {"max_abs_err": err_bwd, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
-                    "bound_ms": bwd_bound, "bytes": bwd_bytes},
-            "shape": [b, 100, h, w]}
+    log("K3", f"({b},100,{h},{w}), from device memory: forward {t['fwd_ms'] * 1e3:.2f} us (bound "
+              f"{fwd_bound * 1e3:.2f} us), plain {t['fwd_plain_ms'] * 1e3:.2f} us; backward "
+              f"{t['bwd_ms'] * 1e3:.2f} us (bound {bwd_bound * 1e3:.2f} us), plain closed form "
+              f"{t['bwd_plain_ms'] * 1e3:.2f} us; outputs sha256 forward {t['fwd_sha256'][:16]} "
+              f"backward {t['bwd_sha256'][:16]}")
+    fwd_r, bwd_r = res["dmol_forward_kernel"], res["dmol_backward_kernel"]
+    return {"fwd": {"max_abs_err": err_fwd, "ms": t["fwd_ms"], "plain_ms": t["fwd_plain_ms"],
+                    "bound_ms": fwd_bound, "bytes": fwd_bytes, "sha256": t["fwd_sha256"],
+                    "resources": fwd_r},
+            "bwd": {"max_abs_err": err_bwd, "ms": t["bwd_ms"], "plain_ms": t["bwd_plain_ms"],
+                    "bound_ms": bwd_bound, "bytes": bwd_bytes, "sha256": t["bwd_sha256"],
+                    "resources": bwd_r},
+            "plans": plans, "sm_clock_hz": clock, "shape": [b, 100, h, w]}
 
 
 def k4_inputs(b, h, w, device, seed=SEED):
@@ -1792,10 +1918,11 @@ def main() -> int:
         row("dmol_loss", "causal_gen_tpu_torch/csrc/dmol_loss.cu",
             "causal_gen_tpu/ops/pallas_kernels.py:230",
             "phase K3 (plain op at (32,100,32,32) and a ragged size with edge and switch "
-            "pixels)", k3["fwd"]),
+            "pixels, low_bit False and True)", k3["fwd"]),
         row("dmol_loss_bwd", "causal_gen_tpu_torch/csrc/dmol_loss.cu",
             "causal_gen_tpu/ops/pallas_kernels.py:262",
-            "phase K3 (autograd of the plain op, same inputs)", k3["bwd"]),
+            "phase K3 (autograd of the plain op, same inputs, low_bit False and True)",
+            k3["bwd"]),
         row("dmol_sample", "causal_gen_tpu_torch/csrc/dmol_sample.cu",
             "causal_gen_tpu/ops/pallas_kernels.py:342",
             "phase K4 (plain version with the same uniforms at (32,100,32,32) and a ragged "

@@ -10,6 +10,8 @@
   by ~1e-5 rel. The closed form against autograd: 1e-6 abs + 1e-5 rel.
 - Train steps of the small Colour-MNIST HVAE with the diag_dmol head, as
   test_torch_train.py runs the dgauss head.
+- The kernels' launch plan (``ops/dmol_loss.py::plan``): tiles, threads,
+  shared memory and tiles that straddle two images.
 
 test_torch_dmol_gpu.py holds the CUDA kernels against these plain versions
 on the card.
@@ -28,10 +30,12 @@ from causal_gen_tpu_torch.models.likelihoods import DmolNet, make_likelihood
 from causal_gen_tpu_torch.ops.distributions import log_prob_from_logits
 from causal_gen_tpu_torch.ops.dmol import discretized_mix_logistic_loss, dmol_logprob_pixels
 from causal_gen_tpu_torch.ops.dmol_loss import (
+    MIXTURES,
     dmol_logprob,
     dmol_loss,
     dmol_loss_bwd,
     dmol_loss_bwd_ref,
+    plan,
 )
 
 from chip_smoke import k3_inputs
@@ -89,15 +93,16 @@ def test_plain_loss_and_gradient_match_jax(shape, narrow):
     np.testing.assert_allclose(twin.numpy(), jg, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("low_bit", [False, True])
 @pytest.mark.parametrize("shape", [(2, 6, 6), (3, 8, 5)])
-def test_closed_form_backward_matches_autograd(shape):
+def test_closed_form_backward_matches_autograd(shape, low_bit):
     """The backward kernel's math against autograd of the plain op, on inputs
     that reach every branch, the -7 floor and both sides of the switch."""
     x, l = edge_inputs(*shape, narrow=True)
     w = torch.arange(1, shape[0] + 1, dtype=torch.float32)
     tx, tl = to_nchw(x), to_nchw(l).requires_grad_()
-    (discretized_mix_logistic_loss(tx, tl) * w).sum().backward()
-    twin = dmol_loss_bwd_ref(tx, tl.detach(), w)
+    (discretized_mix_logistic_loss(tx, tl, low_bit) * w).sum().backward()
+    twin = dmol_loss_bwd_ref(tx, tl.detach(), w, low_bit)
     np.testing.assert_allclose(twin.numpy(), tl.grad.numpy(), rtol=1e-5, atol=1e-6)
 
 
@@ -117,16 +122,48 @@ def test_edge_inputs_reach_every_branch():
     assert (switch > 1e-5).any() and (switch <= 1e-5).any()
 
 
-def test_plain_per_pixel_matches_pallas_interpret():
+@pytest.mark.parametrize("low_bit", [False, True])
+def test_plain_per_pixel_matches_pallas_interpret(low_bit):
+    """1e-5 abs + 1e-5 rel per pixel; low_bit takes the kernels' other
+    constants (a half bin of 1/31, the tail's log 15.5)."""
     from jax.experimental.pallas import tpu as pltpu
 
     from causal_gen_tpu.ops.pallas_kernels import _dmol_logprob_pixels
 
     x, l = edge_inputs(2, 6, 6, seed=1)
     with pltpu.force_tpu_interpret_mode():
-        ref = _dmol_logprob_pixels(jnp.asarray(x), jnp.asarray(l), False, False)
-    got = dmol_logprob_pixels(to_nchw(x), to_nchw(l))
+        ref = _dmol_logprob_pixels(jnp.asarray(x), jnp.asarray(l), low_bit, False)
+    got = dmol_logprob_pixels(to_nchw(x), to_nchw(l), low_bit)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("shape", [(32, 32, 32), (3, 7, 13), (1, 1, 1), (256, 32, 32)])
+def test_launch_plan(shape, backward):
+    """Every pixel in exactly one tile, at most 1024 threads a block, shared
+    memory under the 48 KB that needs no opt-in, and a tile that holds the
+    end of one image and the start of the next planned as straddling."""
+    b, h, w = shape
+    n, hw = b * h * w, h * w
+    pl = plan(n, hw, backward=backward)
+    assert pl.tile in (32, 64) and pl.threads == MIXTURES * pl.tile <= 1024
+    tiles = [range(t * pl.tile, min((t + 1) * pl.tile, n)) for t in range(pl.blocks)]
+    owner = np.zeros(n, int)
+    for t in tiles:
+        owner[list(t)] += 1
+    assert (owner == 1).all() and all(len(t) for t in tiles)
+    assert pl.shared_bytes == (2 * MIXTURES + 2) * pl.tile * 4 <= 48 * 1024
+    straddling = [t for t in tiles if t[0] // hw != t[-1] // hw]
+    assert pl.straddles == bool(straddling)
+    assert pl.straddles == (shape == (3, 7, 13))
+
+
+def test_launch_plan_refuses_what_the_kernels_do_not_take():
+    with pytest.raises(ValueError):
+        plan(10, 3)  # not whole images
+    with pytest.raises(ValueError):
+        plan(2 ** 31, 2 ** 10)
+    assert plan(0, 0).blocks == 0
 
 
 def test_cpu_wrappers_are_the_plain_versions():
