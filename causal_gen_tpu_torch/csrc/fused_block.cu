@@ -57,13 +57,50 @@
 //   48^2, 24^2, 12^2, 6^2 and 1^2; 17.7 ms summed over a ukbb192
 //   DSCM.forward's 200 launches, against 28.6 ms for cuDNN's conv pair.
 //
-// float32: fused_light_block_kernel<float>, the SIMT kernel as it was: one
-// block of 256 threads per TH x TW output tile of one image; relu(x) with a
-// 2-pixel halo and mid with a 1-pixel halo in shared memory as float, each
-// thread one position and up to 8 output channels as fmaf on the CUDA cores,
-// weights read from device memory. The tensor cores have no full-float32
-// path, and TF32 would not hold float32's 1e-5 check. 2153.8 us at
-// (32,32,192,192) b=8 on the same card (bound 162.3 us by float32 flops).
+// float32: fused_light_block_kernel_f32, both convs as implicit GEMMs on the
+// CUDA cores in full float32 (the tensor cores have no full-float32 path, and
+// TF32 would not hold float32's 1e-5 check). 36 C b flops a pixel against
+// 8 C bytes of x and y: at 67 TFLOP/s flops bound it at every ukbb shape
+// but 1^2 (162.3 us at (32,32,192,192) b=8, 18.0 us at each ukbb64 shape to
+// 4^2), so the design is a register-tiled SGEMM:
+//   1. Canvases: x on the tile with a 2-pixel ring, and mid with a 1-pixel
+//      ring, plane-major [channel][row][column] in shared memory, zero
+//      outside the image. A whole image may share a block with others (NI),
+//      side by side with one zero column between two; at 1x1 the block's
+//      images are one row and only the centre tap runs.
+//   2. Each conv: a lane holds a segment of 4 positions along a canvas row by
+//      NG (8 or 16) output channels in registers. For each input channel and
+//      tap row it reads 6 canvas values (16 + 8 bytes), which the row's 3
+//      taps share (conv1 applies relu to them), and for each tap NG weights
+//      (16-byte reads, one address across the warp): 12-14 fmaf a
+//      shared-memory read, no device memory in the loop. Lane-items (groups
+//      slowest) fill the block in rounds.
+//   3. Chunks: the input channels go through two buffers in chunks of KC,
+//      each staged by 4-byte cp.async one chunk ahead: conv1's x canvas and
+//      weights, conv2's weights (mid stays whole). The weights are repacked
+//      from OIHW into [channel][tap][output] on the way. A conv of one chunk
+//      keeps it for all its rounds.
+//   4. conv1's epilogue adds b1 and stores relu(mid) (0 outside the image)
+//      in the mid canvas; conv2's adds b2 and x (read from device memory,
+//      16 bytes a lane where the tile is aligned) and writes y.
+//   5. Small images (24^2 and below at the ukbb widths) give a block few
+//      positions and all of both convs' weights to stream. There a
+//      thread-block cluster of CS blocks takes one tile: block r computes
+//      slice r of mid's channels, the blocks copy each other's slices into
+//      their own mid canvas through distributed shared memory, and block r
+//      computes slice r of y's channels, so each streams 1/CS of the weights.
+//   ops/fused_block.py::plan picks the tile, images, chunk, NG and cluster:
+//   at the ukbb shapes (bs 32) the fastest measured (F32_TUNED), elsewhere
+//   by a count of lane-slots, barriers and staging. Reached on an NVIDIA
+//   H100 80GB HBM3 at 700 W (chip_smoke.py, bs 32, with biases): 71.0, 87.1,
+//   118.1, 223.0, 351.4 and 127.1 us at ukbb64's 64^2 to 1^2, 44.6 ms over
+//   its DSCM.forward's 362 launches (the cuDNN pair 39.4 ms); 579.3 us at
+//   (32,32,192,192) b=8 (the pair 1465.9 us). Tried and
+//   slower on the card: 8 positions a lane (spills), the channel loop
+//   unrolled twice, a lane-item's input channels split across 2 or 4 lanes
+//   (their reads no longer broadcast), x resident for all C channels (small
+//   tiles at C >= 64), and (the first version's design) one position a lane with weights
+//   read from device memory in the loop.
 //
 // The multiply-adds are explicit fmaf calls or MMAs, kept under -fmad=false.
 //
@@ -76,117 +113,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // of a SIMT block
-constexpr int kGroup = 8;  // output channels a thread accumulates at once
 constexpr int kMaxSmem = 232448;  // 227 KB, the most one block can use
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-
-// acc[j] += sum over cin channels and 9 taps of src * w[co0 + j][cin][tap].
-// src points at the (0, 0) tap of channel 0 in a tile of row pitch `pitch`
-// and channel pitch `plane`; w is OIHW with `cin` input channels.
-template <typename T>
-__device__ __forceinline__ void conv3x3_acc(float (&acc)[kGroup], const float* src, int plane,
-                                            int pitch, const T* __restrict__ w, int cin,
-                                            int co0, int nco) {
-  for (int ci = 0; ci < cin; ++ci) {
-    const float* s = src + ci * plane;
-    const T* wp = w + (static_cast<int64_t>(co0) * cin + ci) * 9;
-#pragma unroll
-    for (int k = 0; k < 9; ++k) {
-      const float v = s[(k / 3) * pitch + (k % 3)];
-#pragma unroll
-      for (int j = 0; j < kGroup; ++j) {
-        if (j < nco) acc[j] = fmaf(v, to_f(wp[static_cast<int64_t>(j) * cin * 9 + k]), acc[j]);
-      }
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    fused_light_block_kernel(const T* __restrict__ x, const T* __restrict__ w1,
-                             const T* __restrict__ b1, const T* __restrict__ w2,
-                             const T* __restrict__ b2, T* __restrict__ y, int C, int CB, int H,
-                             int W, int TH, int TW, int tiles_x) {
-  extern __shared__ float smem[];
-  const int XH = TH + 4, XW = TW + 4, MH = TH + 2, MW = TW + 2;
-  float* xs = smem;                // [C][XH][XW]: relu(x), 2-pixel halo
-  float* ms = smem + C * XH * XW;  // [CB][MH][MW]: relu(mid), 1-pixel halo
-  const int ty0 = (blockIdx.x / tiles_x) * TH;
-  const int tx0 = (blockIdx.x % tiles_x) * TW;
-  const int64_t img = static_cast<int64_t>(blockIdx.y) * C * H * W;
-  const T* xn = x + img;
-
-  for (int i = threadIdx.x; i < C * XH * XW; i += blockDim.x) {
-    const int c = i / (XH * XW);
-    const int r = i - c * XH * XW;
-    const int gy = ty0 - 2 + r / XW;
-    const int gx = tx0 - 2 + r % XW;
-    float v = 0.0f;
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-      v = fmaxf(to_f(xn[(static_cast<int64_t>(c) * H + gy) * W + gx]), 0.0f);
-    xs[i] = v;
-  }
-  __syncthreads();
-
-  const int P1 = MH * MW;
-  const int G1 = (CB + kGroup - 1) / kGroup;
-  for (int it = threadIdx.x; it < G1 * P1; it += blockDim.x) {
-    const int g = it / P1;
-    const int p = it - g * P1;
-    const int my = p / MW, mx = p - (p / MW) * MW;
-    const int gy = ty0 - 1 + my, gx = tx0 - 1 + mx;
-    const int co0 = g * kGroup;
-    const int nco = min(kGroup, CB - co0);
-    const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-    float acc[kGroup];
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) acc[j] = 0.0f;
-    if (inside) conv3x3_acc(acc, xs + my * XW + mx, XH * XW, XW, w1, C, co0, nco);
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) {
-      if (j < nco) {
-        float m = 0.0f;
-        if (inside) {
-          const float s = b1 != nullptr ? acc[j] + to_f(b1[co0 + j]) : acc[j];
-          m = fmaxf(to_f(from_f<T>(s)), 0.0f);
-        }
-        ms[(co0 + j) * P1 + p] = m;
-      }
-    }
-  }
-  __syncthreads();
-
-  const int P2 = TH * TW;
-  const int G2 = (C + kGroup - 1) / kGroup;
-  for (int it = threadIdx.x; it < G2 * P2; it += blockDim.x) {
-    const int g = it / P2;
-    const int p = it - g * P2;
-    const int oy = p / TW, ox = p - (p / TW) * TW;
-    const int gy = ty0 + oy, gx = tx0 + ox;
-    if (gy >= H || gx >= W) continue;
-    const int co0 = g * kGroup;
-    const int nco = min(kGroup, C - co0);
-    float acc[kGroup];
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) acc[j] = 0.0f;
-    conv3x3_acc(acc, ms + oy * MW + ox, MH * MW, MW, w2, CB, co0, nco);
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) {
-      if (j < nco) {
-        const float s = b2 != nullptr ? acc[j] + to_f(b2[co0 + j]) : acc[j];
-        const int64_t o = img + (static_cast<int64_t>(co0 + j) * H + gy) * W + gx;
-        y[o] = from_f<T>(to_f(x[o]) + s);
-      }
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // The bf16 tensor-core kernel.
@@ -655,34 +582,516 @@ int allow_smem(K kernel, int smem, bool& set) {
   return 0;
 }
 
+// ---------------------------------------------------------------------------
+// The float32 kernel.
+
+constexpr int kF32Threads = 256;  // threads of a float32 block
+constexpr int kSeg = 4;           // positions of a lane's row segment
+constexpr int kColSlots = 4;      // canvas columns a lane stages: a pitch of at most 32 kColSlots
+
+__host__ __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ __forceinline__ int up_to(int v, int m) { return (v + m - 1) / m * m; }
+
+// A float32 block's shared memory, in floats, as ops/fused_block.py::f32_layout
+// counts it. 9 taps: an x canvas holds x on the tile with a 2-pixel ring for
+// KC input channels (a chunk), the mid canvas relu(mid) with a 1-pixel ring,
+// both cut 1 pixel outside the image's edge and zero outside the image; with
+// NI > 1 (whole images only) the images sit side by side, one zero column
+// between two. 1 tap (1x1 images): the NI images' positions side by side in
+// one row. Canvases are plane-major, [channel][row][column]; pitches are
+// multiples of 4 with room for the last segment's reads. Two x canvases
+// where x takes more than one chunk, else one; then two weight buffers of KC
+// input channels x taps x the larger conv's slice of output channels: a
+// cluster of CS blocks shares each conv's output channels, padded to NG, in
+// CS slices (np1s, np2s).
+struct F32Layout {
+  int taps, xr, xp, mr, mp, s1, s2, np1, np2, np1s, np2s, xc, nxc, mid, w;
+  __host__ __device__ F32Layout(int C, int CB, int H, int W, int TH, int TW, int NI, int KC,
+                                int ng1, int ng2, int CS) {
+    taps = H == 1 && W == 1 ? 1 : 9;
+    if (taps == 1) {
+      xr = mr = 1;
+      s1 = s2 = (NI + kSeg - 1) / kSeg;
+      xp = mp = kSeg * s1;
+    } else {
+      const bool slots = NI > 1;
+      const int mcols = slots ? NI * (W + 1) - 1 : imin(TW + 2, W);  // conv1's columns
+      const int ocols = slots ? NI * (W + 1) - 1 : TW;                // conv2's columns
+      const int cw = slots ? NI * (W + 1) + 1 : imin(TW + 4, W + 2);  // the x canvas's
+      xr = imin(TH + 4, H + 2);
+      mr = TH + 2;
+      s1 = (mcols + kSeg - 1) / kSeg;
+      s2 = (ocols + kSeg - 1) / kSeg;
+      xp = up_to(imax(cw, kSeg * s1 + 2), 4);
+      mp = up_to(imax(kSeg * s2 + 2, kSeg * s1 + 1), 4);
+    }
+    np1 = up_to(CB, ng1);
+    np2 = up_to(C, ng2);
+    np1s = np1 / CS;
+    np2s = np2 / CS;
+    xc = imin(KC, C) * xr * xp;
+    nxc = C > KC ? 2 : 1;
+    mid = CB * mr * mp;
+    w = KC * taps * imax(np1s, np2s);
+  }
+  __host__ __device__ int64_t bytes() const {
+    return 4 * (static_cast<int64_t>(nxc) * xc + mid + 2 * static_cast<int64_t>(w));
+  }
+};
+
+struct F32Args {
+  const float* x;
+  const float* w1;
+  const float* b1;
+  const float* w2;
+  const float* b2;
+  float* y;
+  int B, C, CB, H, W, TH, TW, NI, KC, CS, tiles_x;
+};
+
+// 4 bytes from global to shared memory, asynchronously; zeros where !valid
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// the block's rank in its cluster, a barrier of the cluster's threads (what
+// each block wrote to its shared memory before it is seen by all after it),
+// and a 16-byte read of another block's shared memory at the address of p
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ float4 ld_cluster4(const float* p, unsigned rank) {
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_u32(p)), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+// Stages input channels [k0, k0 + kn) of output channels [n0, n0 + np) of
+// the OIHW weights w (n_real x k_real x 3 x 3) into buf as [k - k0][tap][n -
+// n0] (TAPS 9: every tap; 1: the centre), zero past n_real. Output channels
+// run fastest across the threads, so the 4-byte copies land in distinct banks.
+template <int TAPS>
+__device__ __forceinline__ void stage_w_f32(float* buf, const float* __restrict__ w, int n_real,
+                                            int k_real, int n0, int np, int k0, int kn) {
+  const int total = kn * TAPS * np;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int q = e / np, n = n0 + e - q * np;  // q = (k - k0) TAPS + tap
+    const int kk = q / TAPS, t = q - kk * TAPS;
+    const bool ok = n < n_real;
+    cp_async4(buf + e,
+              ok ? w + (static_cast<int64_t>(n) * k_real + k0 + kk) * 9 + (TAPS == 9 ? t : 4) : w,
+              ok);
+  }
+}
+
+// One conv of the float32 block as an implicit GEMM on the CUDA cores. A
+// lane-item is a segment of kSeg positions along a canvas row by NG output
+// channels, summed in registers over k_real input channels x TAPS taps: for
+// each input channel and tap row it reads kSeg + 2 source values (16- and
+// 8-byte reads, shared by the row's 3 taps; relu'd here when RELU), for each
+// tap NG weights (16-byte reads, the same address across a warp's lanes),
+// and makes kSeg NG fmaf. Item (group g, row r, segment s) reads source rows
+// row0 + r + dy and columns kSeg s + dx; items are spread over the threads
+// in rounds, groups slowest. The input channels come in chunks of kc:
+// src(par, k0) is the source canvas of the chunk from k0 (`plane` floats a
+// channel, `pitch` a row) and ws + par wbuf its weights, [channel][tap][np],
+// both staged by stage(par, chunk) with cp.async one chunk ahead into the
+// other of two buffers; a conv of one chunk keeps it for all its rounds. seq
+// counts the chunks, across both convs, and picks the buffer; next(par)
+// stages what follows this conv's last chunk. epi(g, r, s, acc) takes an
+// item's sums.
+template <int NG, int TAPS, bool RELU, typename Src, typename Stage, typename Next, typename Epi>
+__device__ __forceinline__ void conv_f32(int plane, int pitch, int row0, int rows, int segs,
+                                         int np, int k_real, int kc, const float* ws, int wbuf,
+                                         int& seq, Src src, Stage stage, Next next, Epi epi) {
+  constexpr int KY = TAPS == 9 ? 3 : 1;
+  const int per_g = rows * segs;
+  const int total = np / NG * per_g;
+  const int nthreads = blockDim.x;
+  const int rounds = (total + nthreads - 1) / nthreads;
+  const int chunks = (k_real + kc - 1) / kc;
+  const bool resident = chunks == 1;
+  for (int round = 0; round < rounds; ++round) {
+    const int idx = round * nthreads + threadIdx.x;
+    const bool has = idx < total;
+    const int g = idx / per_g, rem = idx - g * per_g;
+    const int r = rem / segs, s = rem - r * segs;
+    float acc[kSeg][NG];
+#pragma unroll
+    for (int j = 0; j < kSeg; ++j)
+#pragma unroll
+      for (int n = 0; n < NG; ++n) acc[j][n] = 0.0f;
+    for (int ch = 0; ch < chunks; ++ch) {
+      cp_async_wait_all();
+      __syncthreads();  // this chunk has landed; the other buffers' readers are done
+      const bool last = ch + 1 == chunks && round + 1 == rounds;
+      const int par = seq & 1;
+      if (last)
+        next(par ^ 1);
+      else if (!resident)
+        stage(par ^ 1, ch + 1 < chunks ? ch + 1 : 0);
+      cp_async_commit();
+      const int k0 = ch * kc, kn = imin(kc, k_real - k0);
+      const float* xb = src(par, k0) + (row0 + r) * pitch + kSeg * s;
+      const float* wb = ws + par * wbuf + g * NG;
+      if (has) {
+        for (int kk = 0; kk < kn; ++kk) {
+          const float* xk = xb + kk * plane;
+          const float* wk = wb + kk * TAPS * np;
+#pragma unroll
+          for (int dy = 0; dy < KY; ++dy) {
+            float v[kSeg + 2];
+#pragma unroll
+            for (int q = 0; q < kSeg / 4; ++q) {
+              const float4 a = *reinterpret_cast<const float4*>(xk + dy * pitch + 4 * q);
+              v[4 * q] = a.x;
+              v[4 * q + 1] = a.y;
+              v[4 * q + 2] = a.z;
+              v[4 * q + 3] = a.w;
+            }
+            v[kSeg] = v[kSeg + 1] = 0.0f;
+            if (TAPS == 9) {
+              const float2 e = *reinterpret_cast<const float2*>(xk + dy * pitch + kSeg);
+              v[kSeg] = e.x;
+              v[kSeg + 1] = e.y;
+            }
+            if (RELU) {
+#pragma unroll
+              for (int i = 0; i < kSeg + 2; ++i) v[i] = fmaxf(v[i], 0.0f);
+            }
+#pragma unroll
+            for (int dx = 0; dx < KY; ++dx) {
+              float wv[NG];
+#pragma unroll
+              for (int q = 0; q < NG / 4; ++q) {
+                const float4 t =
+                    *reinterpret_cast<const float4*>(wk + (dy * KY + dx) * np + 4 * q);
+                wv[4 * q] = t.x;
+                wv[4 * q + 1] = t.y;
+                wv[4 * q + 2] = t.z;
+                wv[4 * q + 3] = t.w;
+              }
+#pragma unroll
+              for (int j = 0; j < kSeg; ++j)
+#pragma unroll
+                for (int n = 0; n < NG; ++n) acc[j][n] = fmaf(v[j + dx], wv[n], acc[j][n]);
+            }
+          }
+        }
+      }
+      if (!resident || last) ++seq;
+    }
+    if (has) epi(g, r, s, acc);
+  }
+}
+
+// kF32Threads threads, at most 128 registers a thread: two blocks an SM
+// where the shared memory allows. NG1 and NG2: the output channels of a
+// lane-item in conv1 and conv2; TAPS 1 for 1x1 images. A cluster of CS
+// blocks (blockIdx.z) takes one tile: block r computes slice r of mid's
+// channels, the cluster's blocks copy each other's slices into their own mid
+// canvas through distributed shared memory, and block r computes slice r of
+// y's channels; each stages only its slices' weights.
+template <int NG1, int NG2, int TAPS>
+__global__ void __launch_bounds__(kF32Threads, 2) fused_light_block_kernel_f32(const F32Args p) {
+  extern __shared__ __align__(16) float fsm[];
+  const F32Layout lay(p.C, p.CB, p.H, p.W, p.TH, p.TW, p.NI, p.KC, NG1, NG2, p.CS);
+  const int rank = p.CS > 1 ? static_cast<int>(cluster_rank()) : 0;
+  const int n1 = rank * lay.np1s, n2 = rank * lay.np2s;  // the block's first channels
+  float* xs = fsm;
+  float* ms = xs + lay.nxc * lay.xc;
+  float* ws = ms + lay.mid;
+  const int C = p.C, CB = p.CB, H = p.H, W = p.W;
+  const int64_t hw = static_cast<int64_t>(H) * W;
+  const int ty0 = (blockIdx.x / p.tiles_x) * p.TH, tx0 = (blockIdx.x % p.tiles_x) * p.TW;
+  const int b0 = blockIdx.y * p.NI, ni = imin(p.NI, p.B - b0);
+  const int oh = imin(p.TH, H - ty0), ow = imin(p.TW, W - tx0);
+  const bool slots = p.NI > 1;
+  const int slot = W + 1;
+  // The canvases' row 0 and column 0 lie at image row cy0 and column cx0;
+  // conv1 computes mid at image rows my0.. (mrows of them) and canvas
+  // columns c_lo.. (mcols), conv2 y at image rows ty0.. and canvas columns
+  // o_lo.. (ocols). Mid canvas row 0 is image row ty0 - 1 and its column 0
+  // canvas column moff, so that conv2's segments read aligned columns.
+  int cy0 = 0, cx0 = 0, xrows = 1, xcols = ni, my0 = 0, mrows = 1, mcols = ni, ocols = ni;
+  int c_lo = 0, o_lo = 0;
+  if (TAPS == 9) {
+    cy0 = imax(ty0 - 2, -1);
+    xrows = imin(ty0 + oh + 2, H + 1) - cy0;
+    cx0 = imax(tx0 - 2, -1);
+    xcols = slots ? ni * slot + 1 : imin(tx0 + ow + 2, W + 1) - cx0;
+    my0 = imax(ty0 - 1, 0);
+    mrows = imin(ty0 + oh + 1, H) - my0;
+    mcols = slots ? ni * slot - 1 : imin(tx0 + ow + 1, W) - imax(tx0 - 1, 0);
+    ocols = slots ? ni * slot - 1 : ow;
+    c_lo = 1;
+    o_lo = tx0 - cx0;
+  }
+  const int moff = TAPS == 9 ? o_lo - 1 : 0;
+  // the image and image column of canvas column k; false outside every image
+  const auto locate = [&](int k, int& img, int& gcol) -> bool {
+    if (TAPS == 1) {
+      img = k;
+      gcol = 0;
+      return k < ni;
+    }
+    if (!slots) {
+      img = 0;
+      gcol = k + cx0;
+      return gcol >= 0 && gcol < W;
+    }
+    img = (k - 1) / slot;
+    gcol = k - 1 - img * slot;
+    return k >= 1 && img < ni && gcol < W;
+  };
+
+  // x's canvas of input channels [k0, k0 + kn) into buf by cp.async, zero
+  // outside the images: a warp takes (channel, row) pairs, a lane fixed
+  // columns
+  const auto stage_x = [&](float* buf, int k0, int kn) {
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, warps = blockDim.x / 32;
+    int64_t goff[kColSlots];
+    bool cok[kColSlots];
+#pragma unroll
+    for (int m = 0; m < kColSlots; ++m) {
+      const int k = lane + 32 * m;
+      int img = 0, gcol = 0;
+      cok[m] = k < xcols && locate(k, img, gcol);
+      goff[m] = cok[m] ? static_cast<int64_t>(b0 + img) * C * hw + gcol : 0;
+    }
+    for (int pr = warp; pr < kn * lay.xr; pr += warps) {
+      const int c = pr / lay.xr, r = pr - c * lay.xr;
+      const int gy = cy0 + r;
+      const bool rok = r < xrows && gy >= 0 && gy < H;
+      const int64_t row = (k0 + c) * hw + static_cast<int64_t>(rok ? gy : 0) * W;
+      float* dst = buf + pr * lay.xp;
+#pragma unroll
+      for (int m = 0; m < kColSlots; ++m) {
+        const int k = lane + 32 * m;
+        const bool ok = rok && cok[m];
+        if (k < lay.xp) cp_async4(dst + k, ok ? p.x + row + goff[m] : p.x, ok);
+      }
+    }
+  };
+  // conv1's chunk: its weights and x's canvas
+  const auto stage1 = [&](int par, int chunk) {
+    const int k0 = chunk * p.KC, kn = imin(p.KC, C - k0);
+    stage_w_f32<TAPS>(ws + par * lay.w, p.w1, CB, C, n1, lay.np1s, k0, kn);
+    stage_x(xs + par * lay.xc, k0, kn);
+  };
+  int seq = 0;
+  stage1(0, 0);
+  cp_async_commit();
+  for (int i = threadIdx.x; i < lay.mid / 4; i += blockDim.x)
+    reinterpret_cast<float4*>(ms)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+
+  // conv1: mid = relu(conv(relu(x), w1) + b1) inside the image, 0 elsewhere
+  const float* b1 = p.b1;
+  conv_f32<NG1, TAPS, true>(
+      lay.xr * lay.xp, lay.xp, TAPS == 9 ? my0 - 1 - cy0 : 0, mrows, (mcols + kSeg - 1) / kSeg,
+      lay.np1s, C, p.KC, ws, lay.w, seq, [&](int par, int) { return xs + par * lay.xc; },
+      stage1,
+      [&](int par) {
+        stage_w_f32<TAPS>(ws + par * lay.w, p.w2, C, CB, n2, lay.np2s, 0, imin(p.KC, CB));
+      },
+      [&](int g, int r, int s, const float(&acc)[kSeg][NG1]) {
+        float* mrow = ms + (TAPS == 9 ? my0 + r - (ty0 - 1) : 0) * lay.mp - moff;
+#pragma unroll
+        for (int j = 0; j < kSeg; ++j) {
+          const int k = c_lo + kSeg * s + j;
+          int img, gcol;
+          const bool ok = kSeg * s + j < mcols && locate(k, img, gcol);
+#pragma unroll
+          for (int n = 0; n < NG1; ++n) {
+            const int c = n1 + g * NG1 + n;
+            if (c < CB) {
+              float m = 0.0f;
+              if (ok) m = fmaxf(b1 != nullptr ? acc[j][n] + __ldg(b1 + c) : acc[j][n], 0.0f);
+              mrow[c * lay.mr * lay.mp + k] = m;
+            }
+          }
+        }
+      });
+
+  if (p.CS > 1) {  // every block's slice of mid into every block's canvas
+    cluster_sync();
+    const int plane = lay.mr * lay.mp;
+    for (int q = 0; q < p.CS; ++q) {
+      if (q == rank) continue;
+      const int c0 = q * lay.np1s, c1 = imin(c0 + lay.np1s, CB);
+      float* dst = ms + c0 * plane;
+      for (int i = threadIdx.x; i < (c1 - c0) * plane / 4; i += blockDim.x)
+        reinterpret_cast<float4*>(dst)[i] = ld_cluster4(dst + 4 * i, q);
+    }
+    cluster_sync();  // no block leaves, or overwrites its canvas, while others read it
+  }
+
+  // conv2: y = x + (conv(mid, w2) + b2) at the tile's positions
+  const float* b2 = p.b2;
+  const bool vec = TAPS == 9 && !slots && W % 4 == 0 && tx0 % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(p.x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(p.y) % 16 == 0;
+  conv_f32<NG2, TAPS, false>(
+      lay.mr * lay.mp, lay.mp, 0, TAPS == 9 ? oh : 1, (ocols + kSeg - 1) / kSeg, lay.np2s, CB,
+      p.KC, ws, lay.w, seq,
+      [&](int, int k0) -> const float* { return ms + k0 * lay.mr * lay.mp; },
+      [&](int par, int chunk) {
+        const int k0 = chunk * p.KC;
+        stage_w_f32<TAPS>(ws + par * lay.w, p.w2, C, CB, n2, lay.np2s, k0, imin(p.KC, CB - k0));
+      },
+      [](int) {},
+      [&](int g, int r, int s, const float(&acc)[kSeg][NG2]) {
+        const int gy = ty0 + r;
+        if (vec && kSeg * (s + 1) <= ow) {  // kSeg positions of one image row: 16-byte accesses
+          const int64_t base = static_cast<int64_t>(b0) * C * hw +
+                               static_cast<int64_t>(gy) * W + tx0 + kSeg * s;
+#pragma unroll
+          for (int n = 0; n < NG2; ++n) {
+            const int c = n2 + g * NG2 + n;
+            if (c < C) {
+              const float bc = b2 != nullptr ? __ldg(b2 + c) : 0.0f;
+#pragma unroll
+              for (int q = 0; q < kSeg / 4; ++q) {
+                const int64_t o = base + c * hw + 4 * q;
+                const float4 xv = __ldg(reinterpret_cast<const float4*>(p.x + o));
+                float4 yv;
+                yv.x = xv.x + (b2 != nullptr ? acc[4 * q][n] + bc : acc[4 * q][n]);
+                yv.y = xv.y + (b2 != nullptr ? acc[4 * q + 1][n] + bc : acc[4 * q + 1][n]);
+                yv.z = xv.z + (b2 != nullptr ? acc[4 * q + 2][n] + bc : acc[4 * q + 2][n]);
+                yv.w = xv.w + (b2 != nullptr ? acc[4 * q + 3][n] + bc : acc[4 * q + 3][n]);
+                *reinterpret_cast<float4*>(p.y + o) = yv;
+              }
+            }
+          }
+          return;
+        }
+#pragma unroll
+        for (int j = 0; j < kSeg; ++j) {
+          int img, gcol;
+          if (kSeg * s + j >= ocols || !locate(o_lo + kSeg * s + j, img, gcol)) continue;
+          const int64_t base = static_cast<int64_t>(b0 + img) * C * hw +
+                               static_cast<int64_t>(gy) * W + gcol;
+#pragma unroll
+          for (int n = 0; n < NG2; ++n) {
+            const int c = n2 + g * NG2 + n;
+            if (c < C) {
+              const int64_t o = base + c * hw;
+              p.y[o] = __ldg(p.x + o) + (b2 != nullptr ? acc[j][n] + __ldg(b2 + c) : acc[j][n]);
+            }
+          }
+        }
+      });
+}
+
+template <int NG1, int NG2, int TAPS>
+int launch_f32(const F32Args& a, dim3 grid, int smem, cudaStream_t stream) {
+  static bool smem_set = false;
+  const int err = allow_smem(fused_light_block_kernel_f32<NG1, NG2, TAPS>, smem, smem_set);
+  if (err) return err;
+  if (a.CS == 1) {
+    fused_light_block_kernel_f32<NG1, NG2, TAPS><<<grid, kF32Threads, smem, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kF32Threads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = static_cast<unsigned>(a.CS);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, fused_light_block_kernel_f32<NG1, NG2, TAPS>, a);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
 }  // namespace
 
 // Both entry points launch on `stream` (PyTorch's current stream) and return
 // cudaGetLastError(): a launch that CUDA refuses never runs, and only this
 // return reports it. b1 and b2 may be null.
 
-// float32, the SIMT kernel. smem must be 4 * (C (TH+4)(TW+4) + CB (TH+2)(TW+2)) bytes.
+// float32: TH x TW output tiles of NI images (NI > 1 only where the tile is
+// the whole image) a cluster of CS blocks (1, 2, 4 or 8; each conv's groups
+// of NG output channels split evenly among them) of 256 threads; x and the
+// weights staged in chunks of KC input channels; NG1 and NG2 (8 or 16)
+// output channels of a lane-item in conv1 and conv2. smem must be
+// F32Layout(...).bytes().
 extern "C" int fused_light_block_f32_forward(const void* x, const void* w1, const void* b1,
                                              const void* w2, const void* b2, void* y, int64_t B,
-                                             int C, int CB, int H, int W, int TH, int TW,
-                                             int smem, void* stream) {
-  const int64_t need = 4 * (static_cast<int64_t>(C) * (TH + 4) * (TW + 4) +
-                            static_cast<int64_t>(CB) * (TH + 2) * (TW + 2));
-  if (C <= 0 || CB <= 0 || H <= 0 || W <= 0 || TH <= 0 || TW <= 0 || B > 65535 ||
-      smem != need || smem > kMaxSmem)
+                                             int C, int CB, int H, int W, int TH, int TW, int NI,
+                                             int KC, int NG1, int NG2, int CS, int smem,
+                                             void* stream) {
+  if (C <= 0 || CB <= 0 || H <= 0 || W <= 0 || TH <= 0 || TW <= 0 || TH > H || TW > W ||
+      NI <= 0 || KC <= 0 || B < 0 || (NG1 != 8 && NG1 != 16) || (NG2 != 8 && NG2 != 16) ||
+      (CS != 1 && CS != 2 && CS != 4 && CS != 8) || up_to(CB, NG1) % (NG1 * CS) ||
+      up_to(C, NG2) % (NG2 * CS) ||
+      (NI > 1 && (TH != H || TW != W)))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (B <= 0) return static_cast<int>(cudaSuccess);
-  static bool smem_set = false;
-  const int err = allow_smem(fused_light_block_kernel<float>, smem, smem_set);
-  if (err) return err;
-  const int tiles_x = (W + TW - 1) / TW;
-  const int tiles_y = (H + TH - 1) / TH;
-  const dim3 grid(static_cast<unsigned>(tiles_x * tiles_y), static_cast<unsigned>(B));
-  fused_light_block_kernel<float><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w1), static_cast<const float*>(b1),
-      static_cast<const float*>(w2), static_cast<const float*>(b2), static_cast<float*>(y), C, CB,
-      H, W, TH, TW, tiles_x);
-  return static_cast<int>(cudaGetLastError());
+  const F32Layout lay(C, CB, H, W, TH, TW, NI, KC, NG1, NG2, CS);
+  if ((B + NI - 1) / NI > 65535 || lay.xp > 32 * kColSlots || smem != lay.bytes() ||
+      smem > kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return static_cast<int>(cudaSuccess);
+  F32Args a;
+  a.x = static_cast<const float*>(x);
+  a.w1 = static_cast<const float*>(w1);
+  a.b1 = static_cast<const float*>(b1);
+  a.w2 = static_cast<const float*>(w2);
+  a.b2 = static_cast<const float*>(b2);
+  a.y = static_cast<float*>(y);
+  a.B = static_cast<int>(B);
+  a.C = C;
+  a.CB = CB;
+  a.H = H;
+  a.W = W;
+  a.TH = TH;
+  a.TW = TW;
+  a.NI = NI;
+  a.KC = KC;
+  a.CS = CS;
+  a.tiles_x = (W + TW - 1) / TW;
+  const dim3 grid(static_cast<unsigned>(a.tiles_x * ((H + TH - 1) / TH)),
+                  static_cast<unsigned>((B + NI - 1) / NI), static_cast<unsigned>(CS));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool one = lay.taps == 1;
+  if (NG1 == 8 && NG2 == 8)
+    return one ? launch_f32<8, 8, 1>(a, grid, smem, s)
+               : launch_f32<8, 8, 9>(a, grid, smem, s);
+  if (NG1 == 8)
+    return one ? launch_f32<8, 16, 1>(a, grid, smem, s)
+               : launch_f32<8, 16, 9>(a, grid, smem, s);
+  if (NG2 == 8)
+    return one ? launch_f32<16, 8, 1>(a, grid, smem, s)
+               : launch_f32<16, 8, 9>(a, grid, smem, s);
+  return one ? launch_f32<16, 16, 1>(a, grid, smem, s)
+             : launch_f32<16, 16, 9>(a, grid, smem, s);
 }
 
 // bf16, the tensor-core kernel: TH x TW output tiles of NI images a block of

@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port on one GPU and hold its kernels against their
 plain versions.
 
-    python3 chip_smoke.py [--json PATH]
+    python3 chip_smoke.py [--json PATH] [--parent DIR]
+    python3 chip_smoke.py --tune-k2
 
 Phases, one progress line each:
   1. device  - the card's name and power limit (nvidia-smi)
@@ -20,16 +21,19 @@ Phases, one progress line each:
   6. K4      - the DMoL sampler against its plain version with the same
                uniforms at (32,100,32,32) and a ragged size, t 0.3 and 1; Philox
                statistics over 2^20 pixels (mixture frequencies, KS of a
-               channel); its time against the bytes this run's picks need
+               channel); its launch plans; its time in both modes against the
+               bytes this run's picks need, and a digest of its outputs
   6b. K2     - the fused light block against its plain version at all seven
                ukbb192 block shapes and at shapes whose C and b are not
                multiples of 16, whose batch leaves a block of several images
                short and whose weights do not fit beside a tile, in float32
-               (the SIMT kernel, TF32 off) and bf16 (the tensor-core kernel),
-               with and without biases; the bf16 kernel's time at every
-               ukbb192 shape beside the bound, the plain version and the cuDNN
-               conv pair, summed over a DSCM.forward's and an HVAE.sample's
-               launches; the float32 kernel's time at (32,32,192,192) b=8
+               (the CUDA-core kernel, TF32 off) and bf16 (the tensor-core
+               kernel), and at ukbb64's six shapes in float32, with and
+               without biases; each kernel's time at every shape of its main
+               path beside the bound, the plain version and the cuDNN conv
+               pair, summed over a DSCM.forward's and an HVAE.sample's
+               launches: bf16 at ukbb192's shapes, float32 at ukbb64's and
+               ukbb192's
   7. slice   - DSCM.forward do(thickness) at the full Morpho-MNIST width, bs 32,
                weights and batch from a seed: the main path with the launch
                counts read around it, parity with the CPU plain path on the same
@@ -64,6 +68,18 @@ Phases, one progress line each:
                float32 at bs 2 with the draws injected; its time
   13. ukbb-train  - the ukbb192 train step in bf16, bs 32: no K2 launch;
                the first step card against CPU in float32 at bs 2; its time
+  14. ukbb64 - DSCM.forward do(ventricle_volume) on the registry's ukbb64
+               (float32) at full width and depth, bs 32, under inference_mode:
+               the main path with K2's float32 kernel launched 362 times and
+               K1's count from the config, card against the CPU plain path at
+               bs 2 (1e-4, noise injected), the time of a forward, the profiler
+  15. turns  - with --parent DIR (an earlier tree of the repository, unpacked):
+               that tree's K2 float32 kernel at every ukbb shape, K4 in both
+               modes and ukbb64 forward against this tree's, in turns (parent,
+               this, this, parent), each a process of its own; K4's output
+               digests must agree
+With --tune-k2 it only times the float32 K2 kernel's best candidate launches
+at every ukbb shape (tune_k2) and prints the fastest as a table.
 The last two lines are the kernels JSON and the result JSON. Any failure
 exits non-zero without the result line; the whole run stops itself after
 DEADLINE_S. Needs a CUDA device and the rest of the repository; reads no data
@@ -127,6 +143,22 @@ def cuda_time_ms(fns, reps: int = 50, per_graph: int = 24) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / per_graph)
     return statistics.median(times)
+
+
+def forward_times(dscm, obs, do, g, n=20):
+    """Host-clock ms of ``n`` synchronized forwards after 3 warm-up calls."""
+    import torch
+
+    for _ in range(3):
+        dscm.forward(obs, do, generator=g)
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dscm.forward(obs, do, generator=g)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
 
 
 def phase_device():
@@ -653,12 +685,10 @@ def k4_bytes(pick, nr_mix=10):
 
 
 def phase_k4():
-    import statistics as st
-
     import torch
 
     from causal_gen_tpu_torch.ops.dmol import sample_from_discretized_mix_logistic
-    from causal_gen_tpu_torch.ops.dmol_sample import dmol_sample
+    from causal_gen_tpu_torch.ops.dmol_sample import dmol_sample, plan
 
     dev = torch.device("cuda")
     shapes = [(BS, 32, 32), (3, 7, 13)]
@@ -686,45 +716,79 @@ def phase_k4():
 
     b, h, w = shapes[0]
     pix = b * h * w
-    # 8 input sets (105 MB of l) overflow the 50 MB L2: from device memory
+    plans = {str(s_): plan(s_[0] * s_[1] * s_[2], s_[1] * s_[2])._asdict()
+             for s_ in shapes + [(1, 1, 1), (256, 32, 32)]}
+    for key, pl in plans.items():
+        log("K4", f"plan {key}: {pl['tile']} pixels, {pl['threads']} threads, {pl['blocks']} "
+                  f"blocks, {pl['shared_bytes']} B shared, straddles images {pl['straddles']}")
+    t = k4_time(b, h, w, dev)
+    bound_ms = max(t["bytes"] / HBM_BYTES_PER_S, 550 * pix / FP32_FLOPS_PER_S) * 1e3
+    dense_bytes = 424 * pix
+    bound_dense_ms = dense_bytes / HBM_BYTES_PER_S * 1e3
+    log("K4", f"({b},100,{h},{w}), from device memory: Philox kernel {t['ms'] * 1e3:.2f} us (bound "
+              f"{bound_ms * 1e3:.2f} us for the {t['bytes'] / pix:.1f} B a pixel these picks need; "
+              f"{bound_dense_ms * 1e3:.2f} us for all 424 B), injected uniforms "
+              f"{t['ms_injected'] * 1e3:.2f} us, plain version {t['plain_ms'] * 1e3:.2f} us; outputs "
+              f"sha256 Philox {t['philox_sha256'][:16]} injected {t['injected_sha256'][:16]}")
+    return {"max_abs_err": max_err, "excluded_pixels": excluded, "philox": stats, "ms": t["ms"],
+            "ms_injected": t["ms_injected"], "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+            "bytes": t["bytes"], "bound_ms_dense": bound_dense_ms, "bytes_dense": dense_bytes,
+            "sha256": {"philox": t["philox_sha256"], "injected": t["injected_sha256"]},
+            "plans": plans, "shape": [b, 100, h, w]}
+
+
+def k4_time(b, h, w, dev, keys=("ms", "ms_injected", "plain_ms")):
+    """K4 at (b, 100, h, w) from device memory (8 input sets, 105 MB of l,
+    overflow the 50 MB L2), in Philox mode and with injected uniforms, beside
+    its plain version (``keys`` picks the timed ones); the bytes the timed
+    Philox runs' picks need (the graph replays each call with the seeds it
+    was captured with, so these picks); and the SHA-256 of the kernel's x and
+    scale on those sets in both modes, so that two trees' kernels can be held
+    bit for bit against each other."""
+    import hashlib
+    import statistics as st
+
+    import torch
+
+    from causal_gen_tpu_torch.ops.dmol import sample_from_discretized_mix_logistic
+    from causal_gen_tpu_torch.ops.dmol_sample import dmol_sample
+
     sets = [k4_inputs(b, h, w, device=dev, seed=SEED + 30 + i) for i in range(8)]
 
     def philox(i):
         return torch.Generator().manual_seed(SEED + i)
 
-    ms = cuda_time_ms([lambda l=l, i=i: dmol_sample(l, 10, 1.0, generator=philox(i))
-                       for i, (l, _, _) in enumerate(sets)])
-    ms_injected = cuda_time_ms([lambda l=l, um=um, u=u: dmol_sample(l, 10, 1.0, u_mix=um, u=u)
-                                for l, um, u in sets])
-    plain_ms = cuda_time_ms([lambda l=l, um=um, u=u: sample_from_discretized_mix_logistic(
-        l, 10, 1.0, u_mix=um, u=u) for l, um, u in sets])
-    # bytes: what the picks of the timed Philox runs need (the graph replays
-    # each call with the seeds it was captured with, so these picks); the
-    # dense count reads all 400 B of l a pixel. Operations: ~550 a pixel with
-    # Philox's integer work, 0.27 us at 67 TOP/s, so bytes bound it
-    nbytes = st.mean(k4_bytes(k4_picks(l, dmol_sample(l, 10, 1.0, generator=philox(i))[1], 1.0))
-                     for i, (l, _, _) in enumerate(sets))
-    dense_bytes = 424 * pix
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, 550 * pix / FP32_FLOPS_PER_S) * 1e3
-    bound_dense_ms = dense_bytes / HBM_BYTES_PER_S * 1e3
-    log("K4", f"({b},100,{h},{w}), from device memory: Philox kernel {ms * 1e3:.2f} us (bound "
-              f"{bound_ms * 1e3:.2f} us for the {nbytes / pix:.1f} B a pixel these picks need; "
-              f"{bound_dense_ms * 1e3:.2f} us for all 424 B), injected uniforms "
-              f"{ms_injected * 1e3:.2f} us, plain version {plain_ms * 1e3:.2f} us")
-    return {"max_abs_err": max_err, "excluded_pixels": excluded, "philox": stats, "ms": ms,
-            "ms_injected": ms_injected, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bytes": nbytes, "bound_ms_dense": bound_dense_ms, "bytes_dense": dense_bytes,
-            "shape": [b, 100, h, w]}
+    fns = {"ms": [lambda l=l, i=i: dmol_sample(l, 10, 1.0, generator=philox(i))
+                  for i, (l, _, _) in enumerate(sets)],
+           "ms_injected": [lambda l=l, um=um, u=u: dmol_sample(l, 10, 1.0, u_mix=um, u=u)
+                           for l, um, u in sets],
+           "plain_ms": [lambda l=l, um=um, u=u: sample_from_discretized_mix_logistic(
+               l, 10, 1.0, u_mix=um, u=u) for l, um, u in sets]}
+    out = {key: cuda_time_ms(fns[key]) for key in keys}
+    for mode, key in (("philox", "ms"), ("injected", "ms_injected")):
+        digest = hashlib.sha256()
+        for fn in fns[key]:
+            for t in fn():
+                digest.update(t.cpu().numpy().tobytes())
+        out[f"{mode}_sha256"] = digest.hexdigest()
+    # bytes: what these picks need; operations: ~550 a pixel with Philox's
+    # integer work, 0.27 us at 67 TOP/s, so bytes bound it
+    out["bytes"] = st.mean(k4_bytes(k4_picks(l, dmol_sample(l, 10, 1.0, generator=philox(i))[1],
+                                             1.0)) for i, (l, _, _) in enumerate(sets))
+    return out
 
 
 # (B, C, b, H, W): every block shape of ukbb192 in order of resolution, then
 # shapes whose C and b are not multiples of 16, whose batch leaves a block of
-# several images short, and whose weights do not fit beside a tile
+# several images short and whose weights do not fit beside a tile; and every
+# block shape of ukbb64 (float32, the registry's dtype)
 UKBB_K2_SHAPES = [(BS, 32, 8, 192, 192), (BS, 64, 16, 96, 96), (BS, 96, 24, 48, 48),
                   (BS, 128, 32, 24, 24), (BS, 160, 40, 12, 12), (BS, 192, 48, 6, 6),
                   (BS, 512, 128, 1, 1)]
 K2_SHAPES = UKBB_K2_SHAPES + [(3, 8, 2, 7, 13), (2, 48, 12, 9, 11), (5, 24, 8, 2, 3),
                               (2, 512, 128, 5, 4)]
+UKBB64_K2_SHAPES = [(BS, 32, 8, 64, 64), (BS, 64, 16, 32, 32), (BS, 128, 32, 16, 16),
+                    (BS, 256, 64, 8, 8), (BS, 512, 128, 4, 4), (BS, 1024, 256, 1, 1)]
 BF16_FLOPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
 
 
@@ -798,11 +862,12 @@ def cudnn_pair(x, w1, w2, b1, b2):
     return x + F.conv2d(F.relu(F.conv2d(F.relu(x), w1, b1, padding=1)), w2, b2, padding=1)
 
 
-def k2_time(b, c, cb, h, w, dtype, dev, seed=SEED + 60):
+def k2_time(b, c, cb, h, w, dtype, dev, seed=SEED + 60,
+            keys=("ms", "plain_ms", "library_ms")):
     """K2's device time at one shape with biases, beside its plain version,
-    the cuDNN conv pair and its bound. Enough input sets (x, y and the
-    weights) to fill 100 MB cycle through one CUDA graph, so every launch
-    reads from device memory and not from the 50 MB L2."""
+    the cuDNN conv pair and its bound (``keys`` picks the timed ones). Enough
+    input sets (x, y and the weights) to fill 100 MB cycle through one CUDA
+    graph, so every launch reads from device memory and not from the 50 MB L2."""
     import torch
 
     from causal_gen_tpu_torch.ops.fused_block import fused_light_block, fused_light_block_ref
@@ -813,13 +878,56 @@ def k2_time(b, c, cb, h, w, dtype, dev, seed=SEED + 60):
     sets = [k2_inputs(b, c, cb, h, w, dtype, True, dev, seed=seed + i) for i in range(n_sets)]
     per_graph = max(6, n_sets)
     out = {"shape": [b, c, cb, h, w], "dtype": str(dtype)[6:], "input_sets": n_sets}
-    for key, fn in (("ms", fused_light_block), ("plain_ms", fused_light_block_ref),
-                    ("library_ms", cudnn_pair)):
-        out[key] = cuda_time_ms([lambda a=a, fn=fn: fn(*a) for a in sets], reps=20,
+    fns = {"ms": fused_light_block, "plain_ms": fused_light_block_ref, "library_ms": cudnn_pair}
+    for key in keys:
+        out[key] = cuda_time_ms([lambda a=a, fn=fns[key]: fn(*a) for a in sets], reps=20,
                                 per_graph=per_graph)
     out["bound_ms"], out["bytes"], out["flops"], out["bound_by"] = k2_bound_ms(
         b, c, cb, h, w, itemsize)
     return out
+
+
+def tune_k2(top=8, per_cluster=2):
+    """The fastest float32 K2 launch at every bs-32 block shape of ukbb64 and
+    ukbb192, among the planner's ``top`` least estimates and its
+    ``per_cluster`` least at each cluster size (ops/fused_block.py::
+    f32_candidates), each checked against the plain version and timed as
+    k2_time times (from device memory, with biases). Returns {shape: (th,
+    tw, ni, kc, ng1, ng2, cs)}: ops/fused_block.py keeps it as F32_TUNED."""
+    import torch
+
+    from causal_gen_tpu_torch.ops import fused_block as k2
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    table = {}
+    for shape in UKBB64_K2_SHAPES + UKBB_K2_SHAPES:
+        b, c, cb, h, w = shape
+        cands = k2.f32_candidates(*shape)
+        pick = [cfg for _, cfg in cands[:top]]
+        for cs in k2.F32_CLUSTERS:
+            pick += [cfg for _, cfg in cands if cfg[-1] == cs][:per_cluster]
+        pick = list(dict.fromkeys(pick))
+        n_sets = min(64, max(3, math.ceil(100e6 / ((2 * b * c * h * w + 18 * c * cb) * 4))))
+        sets = [k2_inputs(*shape, torch.float32, True, dev, seed=SEED + 60 + i)
+                for i in range(n_sets)]
+        ref = k2.fused_light_block_ref(*sets[0])
+        timed = []
+        for cfg in pick:
+            p = k2.f32_plan_of(*shape, cfg)
+            got = k2.launch(*sets[0], p)
+            torch.cuda.synchronize()
+            k2_compare(sets[0], got, ref)
+            timed.append((cuda_time_ms([lambda a=a, p=p: k2.launch(*a, p) for a in sets], reps=10,
+                                       per_graph=max(6, n_sets)), cfg))
+        timed.sort()
+        table[shape] = timed[0][1]
+        log("tune-k2", f"{shape}: fastest {timed[0][1]} {timed[0][0] * 1e3:.1f} us of "
+                       f"{len(timed)}; the estimate's pick {pick[0]} "
+                       f"{dict((c_, t) for t, c_ in timed)[pick[0]] * 1e3:.1f} us")
+    print("F32_TUNED = " + repr(table), flush=True)
+    return table
 
 
 def k2_blocks_by_shape(cfg, vae):
@@ -839,13 +947,47 @@ def k2_blocks_by_shape(cfg, vae):
     return out
 
 
+def k2_timed(shapes, dtype, by_shape, dev):
+    """k2_time at each (B, C, b, H, W) of ``shapes`` with the launch plan and
+    the launches a DSCM.forward (2 x encoder + 4 x decoder blocks) and an
+    HVAE.sample (decoder blocks) of the model whose ``by_shape`` it is; and
+    each time summed over those launches."""
+    from causal_gen_tpu_torch.ops.fused_block import plan
+
+    times, per = [], {k: {"forward": 0.0, "sample": 0.0} for k in
+                      ("ms", "plain_ms", "library_ms", "bound_ms")}
+    for b, c, cb, h, w in shapes:
+        t = k2_time(b, c, cb, h, w, dtype, dev)
+        enc, dec = by_shape[(c, cb, h)]
+        t.update(plan=plan(b, c, cb, h, w, dtype)._asdict(),
+                 launches_per_forward=2 * enc + 4 * dec, launches_per_sample=dec)
+        times.append(t)
+        for k in per:
+            per[k]["forward"] += t["launches_per_forward"] * t[k]
+            per[k]["sample"] += t["launches_per_sample"] * t[k]
+        log("K2", f"({b},{c},{h},{w}) b={cb} {str(dtype)[6:]} with biases, from device memory, "
+                  f"{t['launches_per_forward']} launches a forward: kernel {t['ms'] * 1e3:.2f} us "
+                  f"(bound {t['bound_ms'] * 1e3:.2f} us by {t['bound_by']}), plain version "
+                  f"{t['plain_ms'] * 1e3:.2f} us, cuDNN conv pair {t['library_ms'] * 1e3:.2f} us; "
+                  f"plan {plan_text(t['plan'])}")
+    return times, per
+
+
+def plan_text(p):
+    """One K2 plan in a few words."""
+    text = (f"{p['kernel']} {p['th']}x{p['tw']} tile, {p['ni']} images, {p['threads']} threads, "
+            f"{p['staging']}, {p['smem']} B")
+    return text + (f", chunk {p['kc']}, NG {p['ng1']}/{p['ng2']}" if p["kernel"] == "simt" else "")
+
+
 def phase_k2():
-    """K2 against its plain version at every shape of K2_SHAPES, in float32
-    (the SIMT kernel, TF32 off) and bf16 (the tensor-core kernel), with and
-    without biases; the bf16 kernel timed at every ukbb192 shape beside its
-    bound, its plain version and the cuDNN conv pair, and summed over the
-    launches of a ukbb192 DSCM.forward and HVAE.sample; the float32 kernel
-    timed at (32,32,192,192) b=8."""
+    """K2 against its plain version at every shape of K2_SHAPES in float32
+    (the CUDA-core kernel, TF32 off) and bf16 (the tensor-core kernel), and
+    at ukbb64's shapes in float32, with and without biases. Each kernel
+    timed at every shape of its main path beside its bound, its plain
+    version and the cuDNN conv pair (TF32 off), and summed over the launches
+    of a DSCM.forward and an HVAE.sample: bf16 at ukbb192's shapes; float32
+    at ukbb64's (its main path) and at ukbb192's (the float32 setting)."""
     import torch
 
     from causal_gen_tpu_torch.models.hvae import HVAE
@@ -856,8 +998,9 @@ def phase_k2():
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     checks = []
-    for i, (b, c, cb, h, w) in enumerate(K2_SHAPES):
-        for dtype in (torch.float32, torch.bfloat16):
+    for i, (b, c, cb, h, w) in enumerate(K2_SHAPES + UKBB64_K2_SHAPES):
+        dtypes = (torch.float32, torch.bfloat16) if i < len(K2_SHAPES) else (torch.float32,)
+        for dtype in dtypes:
             for bias in (False, True):
                 args = k2_inputs(b, c, cb, h, w, dtype, bias, dev, seed=SEED + 50 + i)
                 got = fused_light_block(*args)
@@ -868,9 +1011,10 @@ def phase_k2():
                                "plan": plan(b, c, cb, h, w, dtype)._asdict(),
                                "max_abs_err": err, "n_differ": n_diff,
                                "n_beyond_one_ulp": n_beyond, "n": got.numel()})
-    for dt, kernel in (("float32", "SIMT"), ("bfloat16", "tensor-core")):
+    for dt, kernel, shapes in (("float32", "CUDA-core", K2_SHAPES + UKBB64_K2_SHAPES),
+                               ("bfloat16", "tensor-core", K2_SHAPES)):
         cs = [ch for ch in checks if ch["dtype"] == dt]
-        log("K2", f"{dt} ({kernel} kernel): == plain version at (B,C,b,H,W) {K2_SHAPES}, with "
+        log("K2", f"{dt} ({kernel} kernel): == plain version at (B,C,b,H,W) {shapes}, with "
                   f"and without biases; max abs err {max(ch['max_abs_err'] for ch in cs):.3e}; "
                   f"elements that differ {sum(ch['n_differ'] for ch in cs)} of "
                   f"{sum(ch['n'] for ch in cs)}"
@@ -878,36 +1022,26 @@ def phase_k2():
                if dt == "bfloat16" else ""))
 
     by_shape = k2_blocks_by_shape(ukbb_config(), HVAE(ukbb_config(), device="meta"))
-    if sorted((BS, c, cb, r, r) for c, cb, r in by_shape) != sorted(UKBB_K2_SHAPES):
-        raise AssertionError(f"UKBB_K2_SHAPES {UKBB_K2_SHAPES} are not ukbb192's K2 shapes "
-                             f"{sorted(by_shape)}")
-    times, per = [], {k: {"forward": 0.0, "sample": 0.0} for k in
-                      ("ms", "plain_ms", "library_ms", "bound_ms")}
-    for b, c, cb, h, w in UKBB_K2_SHAPES:
-        t = k2_time(b, c, cb, h, w, torch.bfloat16, dev)
-        enc, dec = by_shape[(c, cb, h)]
-        t.update(plan=plan(b, c, cb, h, w, torch.bfloat16)._asdict(),
-                 launches_per_forward=2 * enc + 4 * dec, launches_per_sample=dec)
-        times.append(t)
-        for k in per:
-            per[k]["forward"] += t["launches_per_forward"] * t[k]
-            per[k]["sample"] += t["launches_per_sample"] * t[k]
-        log("K2", f"({b},{c},{h},{w}) b={cb} bf16 with biases, from device memory, "
-                  f"{t['launches_per_forward']} launches a forward: kernel {t['ms'] * 1e3:.2f} us "
-                  f"(bound {t['bound_ms'] * 1e3:.2f} us by {t['bound_by']}), plain version "
-                  f"{t['plain_ms'] * 1e3:.2f} us, cuDNN conv pair {t['library_ms'] * 1e3:.2f} us")
-    log("K2", "summed over a ukbb192 DSCM.forward's launches (bf16, bs 32): kernel "
-              f"{per['ms']['forward']:.3f} ms, cuDNN conv pair {per['library_ms']['forward']:.3f} "
-              f"ms, plain version {per['plain_ms']['forward']:.3f} ms, bound "
-              f"{per['bound_ms']['forward']:.3f} ms; an HVAE.sample's: kernel "
-              f"{per['ms']['sample']:.3f} ms, pair {per['library_ms']['sample']:.3f} ms")
-    f32 = k2_time(*UKBB_K2_SHAPES[0], torch.float32, dev)
-    log("K2", f"{tuple(UKBB_K2_SHAPES[0])} float32 (SIMT kernel) with biases: kernel "
-              f"{f32['ms'] * 1e3:.1f} us (bound {f32['bound_ms'] * 1e3:.1f} us by "
-              f"{f32['bound_by']}), plain version {f32['plain_ms'] * 1e3:.1f} us, cuDNN conv "
-              f"pair (TF32 off) {f32['library_ms'] * 1e3:.1f} us")
-    hot = times[0]
-    return {"checks": checks, "times": times, "per_path": per, "f32": f32,
+    by_shape64 = k2_blocks_by_shape(ukbb64_config(), HVAE(ukbb64_config(), device="meta"))
+    for name, got, want in (("UKBB_K2_SHAPES", by_shape, UKBB_K2_SHAPES),
+                            ("UKBB64_K2_SHAPES", by_shape64, UKBB64_K2_SHAPES)):
+        if sorted((BS, c, cb, r, r) for c, cb, r in got) != sorted(want):
+            raise AssertionError(f"{name} {want} are not the model's K2 shapes {sorted(got)}")
+    times, per = k2_timed(UKBB_K2_SHAPES, torch.bfloat16, by_shape, dev)
+    f64_times, f64_per = k2_timed(UKBB64_K2_SHAPES, torch.float32, by_shape64, dev)
+    f192_times, f192_per = k2_timed(UKBB_K2_SHAPES, torch.float32, by_shape, dev)
+    for what, p in (("ukbb192 bf16", per), ("ukbb64 float32", f64_per),
+                    ("ukbb192 float32", f192_per)):
+        log("K2", f"summed over a {what} DSCM.forward's launches (bs 32): kernel "
+                  f"{p['ms']['forward']:.3f} ms, cuDNN conv pair {p['library_ms']['forward']:.3f} "
+                  f"ms, plain version {p['plain_ms']['forward']:.3f} ms, bound "
+                  f"{p['bound_ms']['forward']:.3f} ms; an HVAE.sample's: kernel "
+                  f"{p['ms']['sample']:.3f} ms, pair {p['library_ms']['sample']:.3f} ms, bound "
+                  f"{p['bound_ms']['sample']:.3f} ms")
+    hot, hot64 = times[0], max(f64_times, key=lambda t: t["launches_per_forward"])
+    return {"checks": checks, "times": times, "per_path": per, "f32_times_ukbb64": f64_times,
+            "f32_per_path_ukbb64": f64_per, "f32_times_ukbb192": f192_times,
+            "f32_per_path_ukbb192": f192_per, "f32": hot64,
             "max_abs_err_bf16": max(ch["max_abs_err"] for ch in checks if ch["dtype"] != "float32"),
             "max_abs_err_f32": max(ch["max_abs_err"] for ch in checks if ch["dtype"] == "float32"),
             **{k: hot[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
@@ -1014,15 +1148,7 @@ def phase_slice(cfg):
         log("slice", f"2 particles: var_cf_x finite, min {var.min().item():.3e}, "
                      f"max {var.max().item():.3e}")
 
-        for _ in range(3):
-            dscm.forward(obs, do, generator=g)
-        times = []
-        for _ in range(20):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            dscm.forward(obs, do, generator=g)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
+        times = forward_times(dscm, obs, do, g)
         prof = profile_calls(lambda: dscm.forward(obs, do, generator=g), 3, "forward")
     ms = statistics.median(times)
     log("slice", f"DSCM.forward bs {BS}: median {ms:.3f} ms over 20 calls "
@@ -1261,6 +1387,13 @@ def ukbb_config(dtype="bfloat16", bs=BS):
     return get_config("ukbb192", bs=bs, dtype=dtype)
 
 
+def ukbb64_config(bs=BS):
+    """The registry's ukbb64 at its widths and depth, in its float32."""
+    from causal_gen_tpu_torch.config import get_config
+
+    return get_config("ukbb64", bs=bs)
+
+
 def k2_cover(vae):
     """(encoder blocks, decoder blocks) of an HVAE that K2 covers."""
     return (sum(b.k2_covered for b in vae.encoder._blocks),
@@ -1285,7 +1418,7 @@ def ukbb_bounds_per_forward(cfg, vae):
 
 
 def build_ukbb(cfg, device, state=None):
-    """The ukbb192 DSCM: the HVAE, the UKBB FlowPGM as PGM and as predictor
+    """A UK Biobank DSCM (ukbb192 or ukbb64): the HVAE, the UKBB FlowPGM as PGM and as predictor
     (cli/train_cf.py builds it so), weights from the seed or ``state``."""
     import torch
 
@@ -1425,15 +1558,7 @@ def phase_ukbb_slice():
                    else "") + "; " + ", ".join(f"{k} rel {v:.2e}" for k, v in rel.items()))
             del gpu_d, cpu_d
 
-        for _ in range(3):
-            dscm.forward(obs, do, generator=g)
-        times = []
-        for _ in range(20):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            dscm.forward(obs, do, generator=g)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
+        times = forward_times(dscm, obs, do, g)
         out["profile"] = profile_calls(lambda: dscm.forward(obs, do, generator=g), 3, "forward")
     ms = statistics.median(times)
     out.update({"forward_ms": ms, "forward_ms_all": times, "cf_per_s": BS / ms * 1e3,
@@ -1595,6 +1720,156 @@ def phase_ukbb_train():
                       f"peak memory {out['peak_mem_gb']:.1f} GB")
     out["profile"] = profile_calls(lambda: train_step(cfg, st, b, generator=gen), 2, "step")
     return out
+
+
+UKBB64_K2_LAUNCHES = (362, 60)  # K2's launches a ukbb64 DSCM.forward and HVAE.sample
+
+
+def phase_ukbb64():
+    """DSCM.forward do(ventricle_volume) on the registry's ukbb64, float32, at
+    full width and depth, bs BS, under inference_mode: the main path with
+    K2's and K1's launch counts against the config's (every covered block
+    takes K2's float32 kernel), card against the CPU plain path at bs
+    CHECK_BS with the noise injected (1e-4, TF32 off), the time of a forward
+    and the profiler."""
+    import numpy as np
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = ukbb64_config()
+    dscm = build_ukbb(cfg, "cuda")
+    enc_k2, dec_k2 = k2_cover(dscm.vae)
+    n_k2 = 2 * enc_k2 + 4 * dec_k2
+    if (n_k2, dec_k2) != UKBB64_K2_LAUNCHES:
+        raise AssertionError(f"ukbb64: K2 covers {enc_k2} encoder and {dec_k2} decoder blocks, "
+                             f"not the {UKBB64_K2_LAUNCHES} launches a forward and a sample")
+    n_sto = len(k1_res(cfg))
+    obs = ukbb_obs(cfg, BS, dev)
+    do = {UKBB_DO: torch.full((BS, 1), 0.5, device=dev)}
+    g = torch.Generator().manual_seed(SEED + 100)
+    out = {"config": "ukbb64 (registry), float32",
+           "k2_blocks": {"encoder": enc_k2, "decoder": dec_k2}}
+    with torch.inference_mode():
+        # the main path: counts set to 0 just before, read just after
+        reset_counts()
+        res = dscm.forward(obs, do, generator=g)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = dict({k: 0 for k in counts}, fused_light_block=n_k2, fused_light_block_simt=n_k2,
+                    fused_sample_kl=2 * n_sto)
+        if counts != want:
+            raise AssertionError(f"ukbb64 DSCM.forward: launches {counts}, expected {want}")
+        cf_x = res["cfs"]["x"]
+        if cf_x.shape != obs["x"].shape or cf_x.dtype != torch.float32 \
+                or not torch.isfinite(cf_x).all() or cf_x.abs().max() > 1 \
+                or not all(torch.isfinite(res[k]) for k in ("elbo", "nll", "kl", "aux_loss",
+                                                              "loss")):
+            raise AssertionError("ukbb64 main path: cf_x or a loss term is malformed")
+        out["launches"] = counts
+        log("ukbb64", f"main path {out['config']} DSCM.forward do({UKBB_DO}) bs {BS}: launches "
+                      f"{counts} (K2's float32 kernel on {enc_k2} encoder and {dec_k2} decoder "
+                      f"blocks: 2 x {enc_k2} + 4 x {dec_k2}; K1 2 x {n_sto}); elbo "
+                      f"{res['elbo'].item():.5f}")
+
+        # card against the CPU plain path: same weights, batch and noise
+        state = [{k: v.cpu() for k, v in m.state_dict().items()}
+                 for m in (dscm.vae, dscm.pgm, dscm.predictor)]
+        c = ukbb64_config(CHECK_BS)
+        gpu_d, cpu_d = build_ukbb(c, "cuda", state), build_ukbb(c, "cpu", state)
+        obs_c = ukbb_obs(c, CHECK_BS, torch.device("cpu"), seed=SEED + 101)
+        do_c = {UKBB_DO: torch.full((CHECK_BS, 1), 0.5)}
+        rng = np.random.default_rng(SEED + 102)
+        noise = [torch.from_numpy(rng.standard_normal((CHECK_BS, c.z_dim, r, r))
+                                  .astype(np.float32)) for r in k1_res(c) * 2]
+        reset_counts()
+        gpu = gpu_d.forward({k: v.to(dev) for k, v in obs_c.items()},
+                            {k: v.to(dev) for k, v in do_c.items()},
+                            noise=[e.to(dev) for e in noise])
+        torch.cuda.synchronize()
+        counts_c = read_counts()
+        cpu = cpu_d.forward(obs_c, do_c, noise=noise)
+        err = (gpu["cfs"]["x"].cpu() - cpu["cfs"]["x"]).abs().max().item()
+        rel = {k: abs(gpu[k].item() - cpu[k].item()) / abs(cpu[k].item())
+               for k in ("elbo", "nll", "kl", "aux_loss", "loss")}
+        out["card_vs_cpu"] = {"cf_x_max_abs_err": err, "rel_err": rel, "launches": counts_c}
+        if counts_c["fused_light_block_simt"] != n_k2 or err > 1e-4 or max(rel.values()) > 1e-4:
+            raise AssertionError(f"ukbb64 DSCM.forward float32 bs {CHECK_BS} card vs CPU: "
+                                 f"{out['card_vs_cpu']}")
+        log("ukbb64", f"bs {CHECK_BS}: card == CPU plain path (TF32 off, noise injected; cf_x "
+                      f"within 1e-4 abs, every term within 1e-4 rel): cf_x max abs err {err:.3e}; "
+                      + ", ".join(f"{k} rel {v:.2e}" for k, v in rel.items()))
+        del gpu_d, cpu_d
+
+        times = forward_times(dscm, obs, do, g)
+        out["profile"] = profile_calls(lambda: dscm.forward(obs, do, generator=g), 3, "forward")
+    ms = statistics.median(times)
+    out.update({"forward_ms": ms, "forward_ms_all": times, "cf_per_s": BS / ms * 1e3})
+    log("ukbb64", f"ukbb64 float32 DSCM.forward bs {BS}: median {ms:.3f} ms over 20 calls (min "
+                  f"{min(times):.3f}, max {max(times):.3f}) = {BS / ms * 1e3:.1f} cf/s")
+    reset_counts()
+    return out
+
+
+def turn(tree):
+    """One turn of the comparison of two trees' kernels, run in a process of
+    its own with ``tree``'s package first on the path: K2's float32 kernel
+    at every ukbb64 and ukbb192 shape, K4 in both modes with its outputs'
+    digests (k4_time), and the wall and K2's device time of a ukbb64
+    DSCM.forward. Returns what it measured."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    from causal_gen_tpu_torch.ops import build
+
+    build.build_all()
+    out = {"tree": tree, "package": build.__file__,
+           "k2_f32_ms": {str(s_): k2_time(*s_, torch.float32, dev, keys=("ms",))["ms"]
+                         for s_ in UKBB64_K2_SHAPES + UKBB_K2_SHAPES},
+           "k4": k4_time(BS, 32, 32, dev, keys=("ms", "ms_injected"))}
+    cfg = ukbb64_config()
+    dscm = build_ukbb(cfg, "cuda")
+    obs = ukbb_obs(cfg, BS, dev)
+    do = {UKBB_DO: torch.full((BS, 1), 0.5, device=dev)}
+    g = torch.Generator().manual_seed(SEED + 100)
+    with torch.inference_mode():
+        times = forward_times(dscm, obs, do, g, n=10)
+        prof = profile_calls(lambda: dscm.forward(obs, do, generator=g), 3, "forward")
+    out["ukbb64_forward_ms"] = statistics.median(times)
+    out["ukbb64_forward_ms_all"] = times
+    out["ukbb64_profile"] = {k: v for k, v in prof.items() if k != "top"}
+    return out
+
+
+def phase_turns(parent):
+    """This tree's K2 float32 kernel, K4 and ukbb64 forward against the
+    parent tree's at ``parent``, in turns (parent, this, this, parent), each
+    a process of its own (``turn``); K4's digests must agree."""
+    turns = []
+    for tree in (parent, ROOT, ROOT, parent):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--turn", tree],
+                              capture_output=True, text=True, timeout=400)
+        if proc.returncode != 0:
+            raise AssertionError(f"turn in {tree} failed:\n{proc.stdout[-3000:]}"
+                                 f"\n{proc.stderr[-3000:]}")
+        t = json.loads(proc.stdout.strip().splitlines()[-1])
+        turns.append(t)
+        which = "parent" if tree == parent else "this"
+        log("turns", f"{which} tree ({t['package']}): K2 float32 us " + ", ".join(
+            f"{k} {v * 1e3:.1f}" for k, v in t["k2_f32_ms"].items())
+            + f"; K4 Philox {t['k4']['ms'] * 1e3:.2f} us, injected "
+              f"{t['k4']['ms_injected'] * 1e3:.2f} us, sha256 {t['k4']['philox_sha256'][:16]} / "
+              f"{t['k4']['injected_sha256'][:16]}; ukbb64 DSCM.forward median "
+              f"{t['ukbb64_forward_ms']:.3f} ms, K2 "
+              f"{t['ukbb64_profile'].get('k2_device_ms_per_forward')} ms of "
+              f"{t['ukbb64_profile'].get('device_ms_per_forward')} ms device time a forward")
+    for key in ("philox_sha256", "injected_sha256"):
+        if len({t["k4"][key] for t in turns}) != 1:
+            raise AssertionError(f"K4's outputs differ between the trees ({key})")
+    return turns
 
 
 TRAIN_CONFIGS = {"morphomnist": {}, "cmnist_dmol": {"x_like": "diag_dmol"}}
@@ -1857,7 +2132,23 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", help="also write every measurement to this file")
+    ap.add_argument("--parent", help="an unpacked earlier tree of the repository: time its K2 "
+                                     "float32 kernel, K4 and ukbb64 forward against this one's "
+                                     "in turns, after every phase")
+    ap.add_argument("--turn", help=argparse.SUPPRESS)  # one turn, in a process of its own
+    ap.add_argument("--tune-k2", action="store_true",
+                    help="only time the float32 K2 candidates at every ukbb shape and print the "
+                         "fastest as ops/fused_block.py's F32_TUNED")
     args = ap.parse_args()
+    if args.tune_k2:
+        phase_device()
+        sys.path.insert(0, ROOT)
+        tune_k2()
+        return 0
+    if args.turn:
+        sys.path.insert(0, os.path.abspath(args.turn))
+        print(json.dumps(turn(args.turn), default=str), flush=True)
+        return 0
     timer = threading.Timer(DEADLINE_S, _deadline)
     timer.daemon = True
     timer.start()
@@ -1880,6 +2171,8 @@ def main() -> int:
     uk = phase_ukbb_slice()
     uk_samp = phase_ukbb_sample()
     uk_train = phase_ukbb_train()
+    uk64 = phase_ukbb64()
+    turns = phase_turns(os.path.abspath(args.parent)) if args.parent else None
     # launches on the main paths, each counted from 0: DSCM.forward (the
     # Morpho-MNIST and the ukbb192 serving slices), HVAE.sample on the DMoL
     # head and on ukbb192, train() through cli.main on each configuration and
@@ -1889,13 +2182,16 @@ def main() -> int:
     by_path.update({f"cli.main train {n}": e["launches"] for n, e in entry.items()})
     by_path.update({"DSCM.forward ukbb192 bf16": uk["launches"],
                     "HVAE.sample ukbb192 bf16": uk_samp["launches"],
-                    "train_step ukbb192 bf16": uk_train["launches"]})
+                    "train_step ukbb192 bf16": uk_train["launches"],
+                    "DSCM.forward ukbb64 float32": uk64["launches"]})
 
-    # K2's float32 (SIMT) kernel runs on no bf16 main path: its launches are
-    # those of the float32 ukbb192 card-vs-CPU checks, each counted from 0
-    f32_paths = {"DSCM.forward ukbb192 float32 bs 2 (card vs CPU)":
-                 uk["card_vs_cpu"]["float32"]["launches"],
-                 "HVAE.sample ukbb192 float32 bs 2 (card vs CPU)": uk_samp["launches_f32_check"]}
+    # K2's float32 kernel also runs in the float32 card-vs-CPU checks, each
+    # counted from 0; those launches are listed apart
+    f32_checks = {"DSCM.forward ukbb192 float32 bs 2 (card vs CPU)":
+                  uk["card_vs_cpu"]["float32"]["launches"],
+                  "HVAE.sample ukbb192 float32 bs 2 (card vs CPU)": uk_samp["launches_f32_check"],
+                  "DSCM.forward ukbb64 float32 bs 2 (card vs CPU)":
+                  uk64["card_vs_cpu"]["launches"]}
 
     def row(kernel, source, replaces, held_by, m, paths=by_path, **extra):
         return {"name": kernel, "route": "cuda", "source": source, "replaces": replaces,
@@ -1937,9 +2233,15 @@ def main() -> int:
             times=k2["times"], per_path=k2["per_path"]),
         row("fused_light_block_simt", "causal_gen_tpu_torch/csrc/fused_block.cu",
             "causal_gen_tpu/ops/fused_block.py:190",
-            "phase K2 (float32 SIMT kernel, TF32 off; plain version at the same shapes, with "
-            "and without biases); ms, plain_ms, library_ms and bound_ms at (32,32,192,192) b=8",
-            dict(k2["f32"], max_abs_err=k2["max_abs_err_f32"]), paths=f32_paths),
+            "phase K2 (float32 CUDA-core kernel, TF32 off; plain version at the same shapes and "
+            "ukbb64's, with and without biases); ms, plain_ms, library_ms (cuDNN conv pair, "
+            "TF32 off) and bound_ms at (32,64,32,32) b=16, the ukbb64 shape of most launches; "
+            "times_ukbb64 and times_ukbb192 hold every shape",
+            dict(k2["f32"], max_abs_err=k2["max_abs_err_f32"]),
+            times_ukbb64=k2["f32_times_ukbb64"], per_path_ukbb64=k2["f32_per_path_ukbb64"],
+            times_ukbb192=k2["f32_times_ukbb192"], per_path_ukbb192=k2["f32_per_path_ukbb192"],
+            launches_in_float32_checks={p: c["fused_light_block_simt"]
+                                        for p, c in f32_checks.items()}),
     ]
     missing = [k["name"] for k in kernels if k["launches"] == 0]
     if missing:
@@ -1947,7 +2249,7 @@ def main() -> int:
     record = {"device": name, "nvidia_smi": smi, "build_s": build_s, "k1": k1, "k1_bwd": k1b,
               "k3": k3, "k4": k4, "k2": k2, "slice": sl, "sample": samp, "train": train,
               "entry": entry, "ukbb": uk, "ukbb_sample": uk_samp, "ukbb_train": uk_train,
-              "kernels": kernels,
+              "ukbb64": uk64, "turns": turns, "kernels": kernels,
               "total_s": time.perf_counter() - t_start}
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)

@@ -31,7 +31,7 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(32, 32, 32), (3, 7, 13)])
+@pytest.mark.parametrize("shape", [(32, 32, 32), (3, 7, 13), (1, 1, 1), (256, 32, 32)])
 @pytest.mark.parametrize("t", [0.3, 1.0])
 def test_kernel_matches_plain_version(cuda, shape, t):
     l, u_mix, u = k4_inputs(*shape, device=cuda, seed=3)
@@ -41,7 +41,7 @@ def test_kernel_matches_plain_version(cuda, shape, t):
     ref = sample_from_discretized_mix_logistic(l, 10, t, u_mix=u_mix, u=u)
     torch.cuda.synchronize()
     excluded, _ = k4_compare(l, u_mix, t, got, ref)
-    assert excluded <= 2
+    assert excluded <= 2 * max(1, shape[0] // 32)
 
 
 @pytest.mark.gpu

@@ -11,9 +11,11 @@ bits, one ulp of v is 2^(floor(log2 |v|) - 7)).
 
 The kernels themselves run only on the card: tests/test_torch_fused_block_gpu.py
 and chip_smoke.py's K2 phase hold them against this plain version. Here the
-launch planner, a pure function, is held to what the kernels need: the SIMT
-kernel's tile for float32, and for bf16 the tensor-core kernel's tile, images
-a block, channels padded to the MMA's 16, threads and shared memory.
+launch planner, a pure function, is held to what the kernels need: for
+float32 the CUDA-core kernel's tile, images a block, threads, weight chunk,
+output channels a lane and shared memory, and for bf16 the tensor-core
+kernel's tile, images a block, channels padded to the MMA's 16, threads and
+shared memory.
 """
 
 import jax
@@ -34,6 +36,7 @@ from causal_gen_tpu_torch.models.blocks import Block
 from causal_gen_tpu_torch.models.hvae import HVAE, plan_decoder_blocks
 from causal_gen_tpu_torch.ops import fused_block as k2
 
+from chip_smoke import k2_blocks_by_shape
 from tests.torch_parity import load_jax_params, nchw, nhwc
 
 torch.set_num_threads(1)
@@ -147,15 +150,32 @@ def test_wrapper_refuses_a_device_without_a_kernel():
         k2.fused_light_block(x, w1, w2)
 
 
+def test_which_ukbb64_blocks_take_k2():
+    """ukbb64 (float32, the registry's dtype) runs K2's float32 kernel on
+    every covered block: by (C, b, res), encoder and decoder blocks, 362
+    launches a DSCM.forward (2 encoder + 4 decoder passes) and 60 an
+    HVAE.sample (one decoder pass)."""
+    cfg = get_config("ukbb64")
+    assert cfg.dtype == "float32" and cfg.block_version == "light"
+    by_shape = k2_blocks_by_shape(cfg, HVAE(cfg, device="meta"))
+    assert by_shape == {(32, 8, 64): [3, 4], (64, 16, 32): [31, 31], (128, 32, 16): [15, 15],
+                        (256, 64, 8): [7, 7], (512, 128, 4): [3, 3], (1024, 256, 1): [2, 0]}
+    assert sum(2 * e + 4 * d for e, d in by_shape.values()) == 362
+    assert sum(d for _, d in by_shape.values()) == 60
+
+
 @pytest.mark.parametrize("c,cb,h,w", [(32, 8, 192, 192), (64, 16, 96, 96), (96, 24, 48, 48),
                                       (128, 32, 24, 24), (160, 40, 12, 12), (192, 48, 6, 6),
                                       (512, 128, 1, 1), (3, 1, 7, 13)])
 def test_tiles_fit_shared_memory(c, cb, h, w):
-    """Every ukbb192 block shape gets a tile within 100 KB of shared memory
-    (two blocks an SM) and within the card's 227 KB."""
-    th, tw, smem = k2.tile_for(c, cb, h, w)
-    assert 1 <= th <= min(h, 16) and 1 <= tw <= min(w, 16)
-    assert smem == k2.smem_bytes(c, cb, th, tw) <= k2.SMEM_TARGET <= k2.SMEM_LIMIT
+    """Every ukbb192 block shape gets a float32 tile inside the image whose
+    canvases and weight buffers fit the card's 227 KB, at least one block an
+    SM."""
+    p = k2.plan(32, c, cb, h, w, torch.float32)
+    assert 1 <= p.th <= h and 1 <= p.tw <= w
+    assert p.smem == k2.f32_layout(c, cb, h, w, p.th, p.tw, p.ni, p.kc, p.ng1, p.ng2,
+                                   p.cs).bytes
+    assert p.smem + k2.SMEM_RESERVED <= k2.SMEM_PER_SM and p.smem <= k2.SMEM_LIMIT
 
 
 UKBB_SHAPES = [(32, 32, 8, 192, 192), (32, 64, 16, 96, 96), (32, 96, 24, 48, 48),
@@ -203,12 +223,72 @@ def test_plan_shapes_at_ukbb192_and_past_the_shared_memory():
     assert k2.plan(1, 4096, 1024, 3, 3, torch.bfloat16).smem > k2.SMEM_LIMIT  # refused
 
 
-@pytest.mark.parametrize("shape", UKBB_SHAPES + ODD_SHAPES)
+UKBB64_SHAPES = [(32, 32, 8, 64, 64), (32, 64, 16, 32, 32), (32, 128, 32, 16, 16),
+                 (32, 256, 64, 8, 8), (32, 512, 128, 4, 4),
+                 (32, 1024, 256, 1, 1)]  # (B, C, b, H, W) of every block K2 covers in ukbb64
+
+
+@pytest.mark.parametrize("shape", UKBB_SHAPES + ODD_SHAPES + UKBB64_SHAPES)
 def test_float32_plan_is_the_simt_kernel(shape):
+    """float32 takes the CUDA-core kernel: a tile inside the image, several
+    images a block only where the tile is the whole image, 256 threads, one
+    of the compiled chunks and output channels a lane, the convs' output
+    channels padded to those, shared memory as the kernel lays it out and
+    within 227 KB, a canvas pitch the staging covers, the weights resident
+    only where one chunk holds every input channel, and the least estimate
+    over every choice at its tile."""
     b, c, cb, h, w = shape
     p = k2.plan(b, c, cb, h, w, torch.float32)
-    assert p.kernel == "simt" and p.staging == "global" and p.ni == 1 and p.threads == 256
-    assert (p.th, p.tw, p.smem) == k2.tile_for(c, cb, h, w) and (p.cp, p.cbp) == (c, cb)
+    assert p.kernel == "simt"
+    assert 1 <= p.th <= h and 1 <= p.tw <= w and 1 <= p.ni <= b
+    assert p.ni == 1 or (p.th, p.tw) == (h, w)
+    assert p.threads == k2.F32_THREADS and p.kc in k2.F32_CHUNKS
+    assert p.ng1 in k2.F32_NG and p.ng2 in k2.F32_NG
+    assert (p.cp, p.cbp) == (-(-c // p.ng2) * p.ng2, -(-cb // p.ng1) * p.ng1)
+    lay = k2.f32_layout(c, cb, h, w, p.th, p.tw, p.ni, p.kc, p.ng1, p.ng2, p.cs)
+    assert p.smem == lay.bytes <= k2.SMEM_LIMIT and lay.xp <= k2.F32_MAX_PITCH
+    assert lay.taps == (1 if (h, w) == (1, 1) else 9)
+    assert p.staging == ("resident" if p.kc >= max(c, cb) else "streamed")
+    # a cluster splits each conv's groups of output channels evenly
+    assert p.cs in k2.F32_CLUSTERS and (p.cp // p.ng2) % p.cs == 0 == (p.cbp // p.ng1) % p.cs
+    cfg = (p.th, p.tw, p.ni, p.kc, p.ng1, p.ng2, p.cs)
+    if shape in k2.F32_TUNED:  # the measured table's launch, one the estimate also offers
+        assert cfg == k2.F32_TUNED[shape]
+        assert cfg in [c_ for _, c_ in k2.f32_candidates(*shape)]
+    else:  # the estimate's least over every choice at this tile
+        best = min(k2._f32_estimate(b, c, cb, h, w, p.th, p.tw, p.ni, kc, ng1, ng2, cs)
+                   or float("inf") for kc in k2.F32_CHUNKS for ng1 in k2.F32_NG
+                   for ng2 in k2.F32_NG for cs in k2.F32_CLUSTERS)
+        assert k2._f32_estimate(b, c, cb, h, w, *cfg) == best
+
+
+def test_float32_tuned_launches_cover_the_ukbb_shapes():
+    """F32_TUNED holds one launch for every bs-32 block shape of ukbb64 and
+    ukbb192, and nothing else."""
+    assert set(k2.F32_TUNED) == set(UKBB_SHAPES + UKBB64_SHAPES)
+
+
+def test_float32_layout_counted_by_hand():
+    """The float32 block's shared memory at three geometries, in floats: x
+    canvases of a chunk of input channels (channels x rows x pitch; two of
+    them where x takes more than one chunk), mid canvas, two weight buffers
+    (of the block's slice of output channels in a cluster)."""
+    # a 16 x 32 tile of (32,32,192,192) b=8: x 20 rows of 36 columns, 9
+    # conv1 segments read to column 37 (pitch 40); mid 18 rows, 8 conv2
+    # segments read to 33, conv1 writes to 36 (pitch 40); chunks of 8
+    # channels x 9 taps x 32 outputs
+    lay = k2.f32_layout(32, 8, 192, 192, 16, 32, 1, 8, 8, 16)
+    assert (lay.xr, lay.xp, lay.mr, lay.mp, lay.s1, lay.s2) == (20, 40, 18, 40, 9, 8)
+    assert lay.bytes == 4 * (2 * 8 * 20 * 40 + 8 * 18 * 40 + 2 * 8 * 9 * 32)
+    # 1x1: 16 images in one row, the centre tap only; a cluster of 4 blocks
+    # stages a quarter of each conv's output channels' weights
+    lay = k2.f32_layout(512, 128, 1, 1, 1, 1, 16, 32, 8, 8, 4)
+    assert (lay.taps, lay.xr, lay.xp, lay.s1, lay.np1s, lay.np2s) == (1, 1, 16, 4, 32, 128)
+    assert lay.bytes == 4 * (2 * 32 * 16 + 128 * 16 + 2 * 32 * 128)
+    # 4 whole 2 x 3 images side by side, one zero column between two; x in one chunk
+    lay = k2.f32_layout(24, 8, 2, 3, 2, 3, 4, 32, 8, 16)
+    assert (lay.xr, lay.xp, lay.mr, lay.mp, lay.np1, lay.np2) == (4, 20, 4, 20, 8, 32)
+    assert lay.bytes == 4 * (24 * 4 * 20 + 8 * 4 * 20 + 2 * 32 * 9 * 32)
 
 
 def test_plan_refuses_a_dtype_without_a_kernel():

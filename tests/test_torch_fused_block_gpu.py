@@ -1,8 +1,9 @@
-"""K2 on the card: both kernels (bf16 on the tensor cores, float32 SIMT)
-against their plain version at every ukbb192 block shape, at batch 1, at
-batches that leave a block of several images short, and at shapes whose
-channels are not multiples of 16 or whose weights must be streamed; what the
-wrapper refuses; and the light Block's path rule on CUDA.
+"""K2 on the card: both kernels (bf16 on the tensor cores, float32 on the
+CUDA cores) against their plain version at every ukbb192 block shape, at
+batch 1, at batches that leave a block of several images short, and at
+shapes whose channels are not multiples of 16 or whose weights must be
+streamed; the float32 kernel at every ukbb64 block shape; what the wrapper
+refuses; and the light Block's path rule on CUDA.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no JAX (tests/conftest.py does), hence:
@@ -19,7 +20,7 @@ import torch
 
 from causal_gen_tpu_torch.models.blocks import Block
 from causal_gen_tpu_torch.ops.fused_block import fused_light_block, fused_light_block_ref, plan
-from chip_smoke import UKBB_K2_SHAPES, bf16_ulp, k2_compare, k2_inputs
+from chip_smoke import UKBB64_K2_SHAPES, UKBB_K2_SHAPES, bf16_ulp, k2_compare, k2_inputs
 
 torch.set_num_threads(1)
 
@@ -41,8 +42,8 @@ def cuda():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bias", [False, True])
 def test_kernel_matches_plain_version(cuda, shape, dtype, bias):
-    """bf16 launches the tensor-core kernel, float32 the SIMT kernel, each
-    once, within k2_compare's tolerance of the plain version."""
+    """bf16 launches the tensor-core kernel, float32 the CUDA-core kernel,
+    each once, within k2_compare's tolerance of the plain version."""
     args = k2_inputs(*shape, dtype, bias, cuda, seed=3)
     fused_light_block.launches = fused_light_block.launches_tc = 0
     fused_light_block.launches_simt = 0
@@ -54,6 +55,22 @@ def test_kernel_matches_plain_version(cuda, shape, dtype, bias):
     ref = fused_light_block_ref(*args)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == ref.shape
+    k2_compare(args, got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", UKBB64_K2_SHAPES + [(2, 1024, 256, 1, 1), (3, 256, 64, 8, 8)])
+@pytest.mark.parametrize("bias", [False, True])
+def test_float32_kernel_matches_plain_version_at_ukbb64(cuda, shape, bias):
+    """ukbb64's shapes (its main path runs float32), and at batches that
+    leave a block of several images short: one launch of the CUDA-core
+    kernel within 1e-5 abs + rel of the plain version."""
+    args = k2_inputs(*shape, torch.float32, bias, cuda, seed=4)
+    fused_light_block.launches = fused_light_block.launches_simt = 0
+    got = fused_light_block(*args)
+    assert (fused_light_block.launches, fused_light_block.launches_simt) == (1, 1)
+    ref = fused_light_block_ref(*args)
+    torch.cuda.synchronize()
     k2_compare(args, got, ref)
 
 

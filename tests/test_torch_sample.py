@@ -13,6 +13,8 @@ mean decode and heads against the JAX package, on the CPU.
 - ``sample_gaussian`` on the CPU draws ``torch.randn`` from the generator it
   is given, or from the default one; a CUDA tensor with a CPU generator is
   tested on the card (test_torch_dmol_sample_gpu.py).
+- The CUDA kernel's launch plan (``ops/dmol_sample.py::plan``): tiles,
+  threads, shared memory and the tiles that straddle two images.
 
 test_torch_dmol_sample_gpu.py holds the CUDA kernel against the plain version
 on the card.
@@ -37,7 +39,7 @@ from causal_gen_tpu_torch.ops.dmol import (
     sample_from_discretized_mix_logistic,
     uniforms,
 )
-from causal_gen_tpu_torch.ops.dmol_sample import dmol_sample
+from causal_gen_tpu_torch.ops.dmol_sample import dmol_sample, plan
 
 from tests.torch_parity import (
     jax_dmol_uniforms,
@@ -117,6 +119,38 @@ def test_sampler_draws_from_the_generator():
     assert u.min() >= UNIFORM_LO and u.max() < UNIFORM_HI
     with pytest.raises(ValueError, match="together"):
         dmol_sample(l, 10, u_mix=torch.rand(2, 10, 4, 4))
+
+
+@pytest.mark.parametrize("shape", [(32, 32, 32), (3, 7, 13), (1, 1, 1), (256, 32, 32)])
+@pytest.mark.parametrize("nr_mix", [10, 2, 40])
+def test_k4_launch_plan(shape, nr_mix):
+    """Every pixel in exactly one tile of 32, a warp a mixture (at least 3,
+    one a colour channel, and at most 32, 1024 threads), shared memory for
+    the perturbed logits and the v, y and tanh(coeff) of each channel, and a
+    tile that holds the end of one image and the start of the next planned as
+    straddling."""
+    b, h, w = shape
+    n, hw = b * h * w, h * w
+    pl = plan(n, hw, nr_mix)
+    assert pl.tile == 32 and pl.threads == 32 * min(max(nr_mix, 3), 32) <= 1024
+    tiles = [range(t * pl.tile, min((t + 1) * pl.tile, n)) for t in range(pl.blocks)]
+    owner = np.zeros(n, int)
+    for t in tiles:
+        owner[list(t)] += 1
+    assert (owner == 1).all() and all(len(t) for t in tiles)
+    assert pl.shared_bytes == 4 * 32 * (nr_mix + 3 + 3 + 3)
+    straddling = [t for t in tiles if t[0] // hw != t[-1] // hw]
+    assert pl.straddles == bool(straddling) == (shape == (3, 7, 13))
+
+
+def test_k4_launch_plan_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError):
+        plan(10, 3)  # not whole images
+    with pytest.raises(ValueError):
+        plan(32, 32, 0)
+    with pytest.raises(ValueError):
+        plan(2 ** 37, 2 ** 10)
+    assert plan(0, 0).blocks == 0
 
 
 def _tied_logits(l):
