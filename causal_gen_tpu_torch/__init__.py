@@ -2,10 +2,12 @@
 
 Same module layout as the JAX package, so each module has a counterpart of the
 same name there. Modules are NCHW ``nn.Module``s; every random draw takes an
-explicit ``torch.Generator`` or an injected ``noise=`` tensor. The TPU kernels
-on the ported paths (the Morpho-MNIST counterfactual forward, the HVAE train
-step, sampling at a temperature and the ukbb192 slice in bf16) are CUDA C++
-kernels built with ``nvcc`` on first use: ``fused_sample_kl`` and its
+explicit ``torch.Generator`` or an injected ``noise=`` tensor. Committed flax
+checkpoints convert with ``convert.py`` (numpy trees in, ``state_dict``s
+out). The TPU kernels on the ported paths (the Morpho-MNIST counterfactual
+forward, the HVAE train step, sampling at a temperature, the ukbb192 and
+ukbb64 slices and the mimic192 counterfactual forward) are CUDA C++ kernels
+built with ``nvcc`` on first use: ``fused_sample_kl`` and its
 backward (``csrc/sample_kl.cu``), the DMoL loss, forward and backward
 (``csrc/dmol_loss.cu``), the DMoL sampler (``csrc/dmol_sample.cu``) and the
 fused light block (``csrc/fused_block.cu``).

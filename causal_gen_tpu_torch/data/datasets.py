@@ -1,11 +1,12 @@
-"""Datasets of the training path: Morpho-MNIST, Colour-MNIST and UK Biobank.
+"""Datasets of the training path: Morpho-MNIST, Colour-MNIST, UK Biobank and
+MIMIC-CXR.
 
 Counterpart of ``causal_gen_tpu/data/datasets.py`` (reference src/datasets.py
-MorphoMNIST 202-304, ColourMNIST 307-389, UKBB 22-135). Each dataset is held
-as contiguous numpy arrays (uint8 NHWC images and float32 parents); a batch
-is {"x": uint8 (B,H,W,C), "pa": float32 (B, context_dim)} with the parents in
-``cfg.parents_x`` order (digit and colour one-hot). The MIMIC and 3-D
-datasets come with their slices: ``setup_datasets`` refuses them.
+MorphoMNIST 202-304, ColourMNIST 307-389, UKBB 22-135, MIMIC 392-531). Each
+dataset is held as contiguous numpy arrays (uint8 NHWC images and float32
+parents); a batch is {"x": uint8 (B,H,W,C), "pa": float32 (B, context_dim)}
+with the parents in ``cfg.parents_x`` order (digit, colour and race one-hot).
+The 3-D dataset comes with its slice: ``setup_datasets`` refuses it.
 """
 
 from __future__ import annotations
@@ -224,7 +225,40 @@ def ukbb(cfg: Config, data_dir: Optional[str] = None) -> Dict[str, ArrayDataset]
     return {s: build(s, s == "train") for s in ("train", "valid", "test")}
 
 
-DATASETS = {"morphomnist": morphomnist, "cmnist": cmnist, "ukbb": ukbb}
+# ---------------------------------------------------------------------------
+# MIMIC-CXR (reference datasets.py:392-531)
+# ---------------------------------------------------------------------------
+
+MIMIC_DISEASES = ("No Finding", "Pleural Effusion")
+
+
+def mimic(cfg: Config, data_dir: Optional[str] = None) -> Dict[str, ArrayDataset]:
+    """train/valid/test from ``meta/<split>.csv`` and the PNGs under ``data/``
+    (causal_gen_tpu/data/datasets.py:277-314): the rows whose ``disease`` is
+    "No Finding" or "Pleural Effusion", each image resized bilinearly to
+    ``input_res``; age -> age / 100 * 2 - 1, race -> one-hot(3), sex as read,
+    finding = Pleural Effusion. No augmentation, as in the JAX reader."""
+    root = data_dir or cfg.data_dir
+    res = cfg.input_res
+
+    def build(split: str) -> ArrayDataset:
+        with open(os.path.join(root, "meta", split + ".csv"), newline="") as f:
+            rows = [r for r in csv.DictReader(f) if r["disease"] in MIMIC_DISEASES]
+        paths = [os.path.join(root, "data", r["path_preproc"]) for r in rows]
+        attrs = {
+            "age": np.array([float(r["age"]) for r in rows], np.float32) / 100 * 2 - 1,
+            "sex": np.array([float(r["sex_label"]) for r in rows], np.float32),
+            "race": one_hot_np([int(float(r["race_label"])) for r in rows], 3),
+            "finding": np.array([r["disease"] == "Pleural Effusion" for r in rows],
+                                np.float32),
+        }
+        return ArrayDataset(images=_load_png_batch(paths, res)[..., None], attrs=attrs,
+                            columns=tuple(cfg.parents_x))
+
+    return {s: build(s) for s in ("train", "valid", "test")}
+
+
+DATASETS = {"morphomnist": morphomnist, "cmnist": cmnist, "ukbb": ukbb, "mimic": mimic}
 
 
 def setup_datasets(cfg: Config, data_dir: Optional[str] = None) -> Dict[str, ArrayDataset]:

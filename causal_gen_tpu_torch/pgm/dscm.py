@@ -3,7 +3,9 @@
 
 Counterpart of ``causal_gen_tpu/pgm/dscm.py`` (reference src/pgm/dscm.py):
 ``vae_preprocess``, ``ukbb_preprocess`` and ``DSCM.forward``, which runs
-abduct -> act -> predict. Semantics kept from the JAX package:
+abduct -> act -> predict. The PGM's ``counterfactual`` applies its own
+``discrete_variables`` rule (the MIMIC finding restore), as the JAX PGM
+module does. Semantics kept from the JAX package:
 
 - pixel-level abduction u = (x - rec_loc) / max(rec_scale, 1e-12) and
   cf_x = clamp(cf_loc + cf_scale * u, -1, 1) (dscm.py:55-56);
@@ -90,9 +92,11 @@ class DSCM:
         ``t_abduct`` is the temperature of the abduction only; the decodes
         run at t = None (causal_gen_tpu/pgm/dscm.py:121,151-159).
 
-        Random draws: ``noise`` yields the standard-normal draws in order (the
-        factual pass's posterior draws, then each particle's abduction draws),
-        else they come from ``generator`` (a CPU ``torch.Generator``).
+        Random draws: ``noise`` yields the draws in order (the factual pass's
+        posterior normals, then for each particle the PGM's Gumbel-Max
+        posterior draws (top, rest) of each such site, if any, and the
+        abduction's normals), else they come from ``generator`` (a CPU
+        ``torch.Generator``).
         """
         cfg = self.cfg
         beta = cfg.beta if beta is None else beta
@@ -107,7 +111,7 @@ class DSCM:
         cf_sq = torch.zeros_like(x)
         cf_pa: Dict[str, Tensor] = {}
         for _ in range(cf_particles):
-            cf_pa = self.pgm.counterfactual(pa, do, generator=generator)
+            cf_pa = self.pgm.counterfactual(pa, do, generator=generator, noise=noise)
             _cf_pa = vae_preprocess(cfg, cf_pa)
             zs = self.vae.abduct(x, _pa, noise=noise, generator=generator, t=t_abduct)
             cf_loc, cf_scale = self.vae.forward_latents(zs, _cf_pa, noise=noise,

@@ -1,11 +1,13 @@
 """Neural nets used inside the PGMs (PyTorch, NCHW).
 
-Counterpart of ``causal_gen_tpu/pgm/modules.py`` for what the Morpho-MNIST
-and UK Biobank PGMs use: ``MLP`` and ``CNN`` (the anticausal predictors) and
-``DenseNN`` (the context net of the conditional affine flows). Submodules
-carry flax's auto-generated names (``Conv_0``, ``GroupNorm_0``, ``Dense_0``,
-``LayerNorm_0``) so that converted parameters load key for key. Norms use
-flax's epsilon, 1e-6, not PyTorch's default 1e-5.
+Counterpart of ``causal_gen_tpu/pgm/modules.py``: ``MLP`` and ``CNN`` (the
+Morpho-MNIST and UK Biobank anticausal predictors), ``DenseNN`` (the context
+nets of the conditional flows and of the MIMIC finding mechanism) and the
+GroupNorm ResNet-18 of the MIMIC predictors (``ResBlock``, ``ResNet18Trunk``,
+``ResNet18Head``). Submodules carry flax's auto-generated names (``Conv_0``,
+``GroupNorm_0``, ``Dense_0``, ``LayerNorm_0``, ``ResBlock_3``) so that
+converted parameters load key for key. Norms use flax's epsilon, 1e-6, not
+PyTorch's default 1e-5.
 """
 
 from __future__ import annotations
@@ -103,3 +105,72 @@ class DenseNN(nn.Module):
             x = self.act(layer(x))
         outs = tuple(head(x) for head in self._heads)
         return outs if len(outs) > 1 else outs[0]
+
+
+class ResBlock(nn.Module):
+    """GroupNorm basic block with dropout (reference resnet.py:9-59): conv3x3
+    (stride) -> GN -> relu -> dropout 0.2 (training only) -> conv3x3 -> GN,
+    plus the identity, or a 1x1 strided ``downsample`` conv and its GN where
+    the stride or the width changes; relu of the sum."""
+
+    def __init__(self, in_planes: int, planes: int, stride: int = 1, p_dropout: float = 0.2):
+        super().__init__()
+        self.Conv_0 = nn.Conv2d(in_planes, planes, 3, stride=stride, padding=1, bias=False)
+        self.GroupNorm_0 = _gn(planes)
+        self.Conv_1 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
+        self.GroupNorm_1 = _gn(planes)
+        self.p_dropout = p_dropout
+        if stride != 1 or in_planes != planes:
+            self.downsample = nn.Conv2d(in_planes, planes, 1, stride=stride, bias=False)
+            self.GroupNorm_2 = _gn(planes)
+        else:
+            self.downsample = None
+
+    def forward(self, x: Tensor, train: bool = False) -> Tensor:
+        out = F.relu(self.GroupNorm_0(self.Conv_0(x)))
+        out = F.dropout(out, self.p_dropout, training=train)
+        out = self.GroupNorm_1(self.Conv_1(out))
+        identity = x if self.downsample is None else self.GroupNorm_2(self.downsample(x))
+        return F.relu(out + identity)
+
+
+class ResNet18Trunk(nn.Module):
+    """Shared GroupNorm ResNet-18 trunk up to the global mean pool (reference
+    resnet.py:62-209, layers (2, 2, 2, 2), widths (64, 128, 256, 512)): a 7x7
+    stride-2 stem, GN, relu, a 3x3 stride-2 max-pool padded by 1 (with -inf,
+    as flax pads), then eight ``ResBlock``s. Returns (B, widths[-1])."""
+
+    def __init__(self, input_channels: int = 1, widths: Tuple[int, ...] = (64, 128, 256, 512),
+                 layers: Tuple[int, ...] = (2, 2, 2, 2)):
+        super().__init__()
+        self.Conv_0 = nn.Conv2d(input_channels, widths[0], 7, stride=2, padding=3, bias=False)
+        self.GroupNorm_0 = _gn(widths[0])
+        blocks = []
+        cin = widths[0]
+        for i, (w, n) in enumerate(zip(widths, layers)):
+            for j in range(n):
+                blocks.append(ResBlock(cin, w, stride=2 if (i > 0 and j == 0) else 1))
+                self.add_module(f"ResBlock_{len(blocks) - 1}", blocks[-1])
+                cin = w
+        self._blocks = blocks
+
+    def forward(self, x: Tensor, train: bool = False) -> Tensor:
+        x = F.relu(self.GroupNorm_0(self.Conv_0(x)))
+        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        for block in self._blocks:
+            x = block(x, train=train)
+        return torch.mean(x, dim=(2, 3))
+
+
+class ResNet18Head(nn.Module):
+    """Linear head over the trunk's features, with an optional context
+    concatenated first (reference resnet.py:212-239)."""
+
+    def __init__(self, in_features: int, num_outputs: int, context_dim: int = 0):
+        super().__init__()
+        self.Dense_0 = nn.Linear(in_features + context_dim, num_outputs)
+
+    def forward(self, feats: Tensor, y: Optional[Tensor] = None) -> Tensor:
+        if y is not None:
+            feats = torch.cat([feats, y], dim=-1)
+        return self.Dense_0(feats)

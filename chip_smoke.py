@@ -73,7 +73,19 @@ Phases, one progress line each:
                the main path with K2's float32 kernel launched 362 times and
                K1's count from the config, card against the CPU plain path at
                bs 2 (1e-4, noise injected), the time of a forward, the profiler
-  15. turns  - with --parent DIR (an earlier tree of the repository, unpacked):
+  15. mimic  - DSCM.forward on the mimic192 flagship's configuration (the
+               registry's mimic192 with the flagship's z_max_res 96, beta and
+               posterior init; bf16, GELU blocks, so K2 covers no block) with
+               ChestPGM as PGM and as the ResNet-18 predictor, weights from the
+               seed: K1 against its plain version at the path's shapes
+               (injected eps); card against the CPU plain path at bs 2 in
+               float32 (1e-4)
+               and bf16 (the transfer's bound) under do(age) and
+               do(finding = 1 - finding), the posterior normals and both Gumbel
+               draws injected; the main path do(age) at bs 32 under
+               inference_mode with K1's 76 launches and no other; the time of a
+               forward, the profiler, the trunk's device time
+  16. turns  - with --parent DIR (an earlier tree of the repository, unpacked):
                that tree's K2 float32 kernel at every ukbb shape, K4 in both
                modes and ukbb64 forward against this tree's, in turns (parent,
                this, this, parent), each a process of its own; K4's output
@@ -83,7 +95,8 @@ at every ukbb shape (tune_k2) and prints the fastest as a table.
 The last two lines are the kernels JSON and the result JSON. Any failure
 exits non-zero without the result line; the whole run stops itself after
 DEADLINE_S. Needs a CUDA device and the rest of the repository; reads no data
-and no checkpoint. With --json, every measurement also goes to PATH.
+and no checkpoint.
+With --json, every measurement also goes to PATH.
 """
 
 from __future__ import annotations
@@ -202,6 +215,31 @@ def k1_shapes(cfg):
     return [(BS, cfg.z_dim, r, r) for r in sorted(set(k1_res(cfg)))]
 
 
+def k1_check(shapes, g):
+    """K1 (``fused_sample_kl``) against its plain version on the card at each
+    of ``shapes``, inputs and eps from ``g``: z and kl within
+    1e-6 (1 + |ref|). Returns the largest abs error."""
+    import torch
+
+    from causal_gen_tpu_torch.ops.sample_kl import fused_sample_kl, fused_sample_kl_ref
+
+    dev = torch.device("cuda")
+    max_err = 0.0
+    for shape in shapes:
+        args = [(torch.randn(shape, generator=g) * s).to(dev) for s in (1.0, 0.3, 1.0, 0.3)]
+        eps = torch.randn(shape, generator=g).to(dev)
+        z, kl = fused_sample_kl(*args, eps=eps)
+        z_r, kl_r = fused_sample_kl_ref(*args, eps)
+        torch.cuda.synchronize()
+        for got, ref in ((z, z_r), (kl, kl_r)):
+            err = (got - ref).abs()
+            if not torch.all(err <= 1e-6 * (1 + ref.abs())):
+                raise AssertionError(f"K1 disagrees with its plain version at {shape}: "
+                                     f"max err {err.max().item():.3e}")
+            max_err = max(max_err, err.max().item())
+    return max_err
+
+
 def phase_k1(cfg):
     import torch
 
@@ -213,19 +251,7 @@ def phase_k1(cfg):
     def inputs(shape):
         return [(torch.randn(shape, generator=g) * s).to(dev) for s in (1.0, 0.3, 1.0, 0.3)]
 
-    max_err = 0.0
-    for shape in k1_shapes(cfg) + [(1_000_003,)]:
-        args = inputs(shape)
-        eps = torch.randn(shape, generator=g).to(dev)
-        z, kl = fused_sample_kl(*args, eps=eps)
-        z_r, kl_r = fused_sample_kl_ref(*args, eps)
-        torch.cuda.synchronize()
-        for got, ref in ((z, z_r), (kl, kl_r)):
-            err = (got - ref).abs()
-            if not torch.all(err <= 1e-6 * (1 + ref.abs())):
-                raise AssertionError(f"K1 disagrees with its plain version at {shape}: "
-                                     f"max err {err.max().item():.3e}")
-            max_err = max(max_err, err.max().item())
+    max_err = k1_check(k1_shapes(cfg) + [(1_000_003,)], g)
     log("K1", f"injected eps: kernel == plain version within 1e-6*(1+|ref|) at "
               f"{k1_shapes(cfg)} and (1000003,); max abs err {max_err:.3e}")
 
@@ -1812,6 +1838,207 @@ def phase_ukbb64():
     return out
 
 
+MIMIC_VARS = ("sex", "age", "race", "finding")
+# where the mimic192 flagship (checkpoints/mimic192_flagship/vae/hparams.json)
+# departs from the registry's mimic192 in a field the forward reads;
+# tests/test_torch_convert_ckpt.py holds mimic_config to that file
+MIMIC_FLAGSHIP = {"z_max_res": 96, "beta": 9.0, "posterior_init_scale": 0.0}
+
+
+def mimic_config(dtype="bfloat16", bs=BS):
+    """The mimic192 flagship's configuration: the registry's mimic192 with
+    the flagship's z_max_res 96 (bias_max_res 64, the GELU blocks, full width
+    and depth), beta and zero-initialised posterior heads."""
+    from causal_gen_tpu_torch.config import get_config
+
+    return get_config("mimic192").replace(**MIMIC_FLAGSHIP, bs=bs, dtype=dtype)
+
+
+def build_mimic(cfg, device, state=None):
+    """A MIMIC DSCM: the HVAE, ChestPGM as PGM and as predictor (the ResNet-18
+    trunk), as cli/train_cf.py builds it. Weights from the seed as flax
+    initialises them, then every all-zero leaf (the flagship zero-initialises
+    the prior and posterior heads, so q == p, and the biases) given
+    0.05 N(0, 1) from the seed, so that every path carries signal; or
+    ``state``."""
+    import torch
+
+    from causal_gen_tpu_torch.models.hvae import HVAE
+    from causal_gen_tpu_torch.pgm.dscm import DSCM
+    from causal_gen_tpu_torch.pgm.flow_pgm import ChestPGM
+
+    g = torch.Generator().manual_seed(SEED)
+    mods = (HVAE(cfg, device=device, generator=g),
+            ChestPGM(setup_predictors=False, device=device, generator=g),
+            ChestPGM(setup_predictors=True, input_res=cfg.input_res, device=device, generator=g))
+    with torch.no_grad():
+        for mod, sd in zip(mods, state or [None] * 3):
+            if sd is not None:
+                mod.load_state_dict(sd)
+                continue
+            for p in mod.parameters():
+                if not p.any():
+                    p.add_(0.05 * torch.randn(p.shape, generator=g).to(p.device))
+    return DSCM(cfg, mods[1], mods[2], mods[0])
+
+
+def mimic_obs(cfg, n, device, seed=SEED):
+    """A batch in the PGM's space: x in [-1, 1], sex and finding 0/1, age in
+    [-0.8, 0.8], race one-hot(3)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    res = cfg.input_res
+    obs = {"x": rng.uniform(-1, 1, (n, 1, res, res)), "sex": rng.integers(0, 2, (n, 1)),
+           "age": rng.uniform(-0.8, 0.8, (n, 1)), "race": np.eye(3)[rng.integers(0, 3, n)],
+           "finding": rng.integers(0, 2, (n, 1))}
+    return {k: torch.tensor(v, dtype=torch.float32, device=device) for k, v in obs.items()}
+
+
+def mimic_do(kind, obs):
+    """do(age = -0.6) (the finding then follows its Gumbel posterior) or
+    do(finding = 1 - finding)."""
+    import torch
+
+    if kind == "age":
+        return {"age": torch.full_like(obs["age"], -0.6)}
+    return {"finding": 1.0 - obs["finding"]}
+
+
+def phase_mimic():
+    """DSCM.forward on the mimic192 flagship's configuration in bf16 at bs BS
+    under inference_mode: K1 against its plain version at the main path's
+    shapes; card against the CPU plain path at bs CHECK_BS in
+    float32 and bf16 under do(age) and do(finding), every draw injected (the
+    posterior normals and both Gumbel draws); the main path do(age) with the
+    launch counts read around it; the time of a forward, the profiler, and
+    the ResNet-18 trunk's device time."""
+    import numpy as np
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = mimic_config()
+    dscm = build_mimic(cfg, "cuda")
+    enc_k2, dec_k2 = k2_cover(dscm.vae)
+    n_sto = len(k1_res(cfg))
+    out = {"config": f"mimic192 flagship (registry mimic192 with {MIMIC_FLAGSHIP}: z_max_res "
+                     f"{cfg.z_max_res}, bias_max_res {cfg.bias_max_res}, block_version "
+                     f"{cfg.block_version}), bf16",
+           "k2_blocks": {"encoder": enc_k2, "decoder": dec_k2}, "stochastic_blocks": n_sto,
+           "k1_bound_ms_per_forward": 2 * 28 * sum(BS * cfg.z_dim * r * r for r in k1_res(cfg))
+           / HBM_BYTES_PER_S * 1e3}
+    # K1 at the shapes the main path gives it (the Morpho-MNIST shapes of
+    # phase K1 are others)
+    out["k1_max_abs_err"] = k1_check(k1_shapes(cfg), torch.Generator().manual_seed(SEED + 113))
+    log("mimic", f"K1 (injected eps): kernel == plain version within 1e-6*(1+|ref|) at "
+                 f"{k1_shapes(cfg)}; max abs err {out['k1_max_abs_err']:.3e}")
+    with torch.inference_mode():
+        # card against the CPU plain path: same weights, batch and draws
+        out["card_vs_cpu"] = {}
+        state = [{k: v.cpu() for k, v in m.state_dict().items()}
+                 for m in (dscm.vae, dscm.pgm, dscm.predictor)]
+        obs_c = mimic_obs(cfg, CHECK_BS, torch.device("cpu"), seed=SEED + 111)
+        rng = np.random.default_rng(SEED + 112)
+        normal = [torch.from_numpy(rng.standard_normal((CHECK_BS, cfg.z_dim, r, r))
+                                   .astype(np.float32)) for r in k1_res(cfg) * 2]
+        gumbel = [torch.from_numpy(rng.gumbel(size=s).astype(np.float32))
+                  for s in ((CHECK_BS, 1), (CHECK_BS, 2))]
+        noise = normal[:n_sto] + gumbel + normal[n_sto:]
+        for dtype in ("float32", "bfloat16"):
+            c = mimic_config(dtype, CHECK_BS)
+            gpu_d, cpu_d = build_mimic(c, "cuda", state), build_mimic(c, "cpu", state)
+            for kind in ("age", "finding"):
+                do_c = mimic_do(kind, obs_c)
+                reset_counts()
+                gpu = gpu_d.forward({k: v.to(dev) for k, v in obs_c.items()},
+                                    {k: v.to(dev) for k, v in do_c.items()},
+                                    noise=[e.to(dev) for e in noise])
+                torch.cuda.synchronize()
+                counts_c = read_counts()
+                cpu = cpu_d.forward(obs_c, do_c, noise=noise)
+                err = (gpu["cfs"]["x"].cpu() - cpu["cfs"]["x"]).abs()
+                rel = {k: abs(gpu[k].item() - cpu[k].item()) / max(abs(cpu[k].item()), 1e-30)
+                       for k in ("elbo", "nll", "kl", "aux_loss", "loss")}
+                parents_equal = all(torch.allclose(gpu["cfs"][k].cpu(), cpu["cfs"][k], rtol=0,
+                                                   atol=1e-5) for k in MIMIC_VARS)
+                entry = {"cf_x_max_abs_err": err.max().item(), "rel_err": rel,
+                         "launches": counts_c, "parents_equal": parents_equal,
+                         "findings_changed": int((cpu["cfs"]["finding"] != obs_c["finding"])
+                                                 .sum())}
+                if dtype == "float32":
+                    ok = err.max().item() <= 1e-4 and max(rel.values()) <= 1e-4
+                    what = "cf_x within 1e-4 abs, every term within 1e-4 rel"
+                else:
+                    bound = ukbb_transfer_bound(cpu_d, obs_c, cpu, noise[n_sto + 2:])
+                    entry["cf_x_err_over_bound"] = (err / bound).max().item()
+                    ok = entry["cf_x_err_over_bound"] <= 1 and \
+                        max(rel[k] for k in ("elbo", "nll", "kl")) <= 2e-2 and \
+                        rel["aux_loss"] <= 2.0 ** -4
+                    what = ("cf_x within the transfer's bound (eps 2^-4), elbo/nll/kl within "
+                            "2e-2 rel, aux_loss within 2^-4 rel")
+                want = dict({k: 0 for k in counts_c}, fused_sample_kl=2 * n_sto)
+                out["card_vs_cpu"][f"{dtype} do({kind})"] = entry
+                if not (ok and parents_equal and counts_c == want):
+                    raise AssertionError(f"mimic192 DSCM.forward {dtype} do({kind}) card vs CPU "
+                                         f"(launches expected {want}): {entry}")
+                log("mimic", f"{dtype} do({kind}) bs {CHECK_BS}: card == CPU plain path ({what}; "
+                             f"the counterfactual parents within 1e-5; "
+                             f"{entry['findings_changed']} findings changed): cf_x max abs err "
+                             f"{err.max().item():.3e}"
+                    + (f" ({entry['cf_x_err_over_bound']:.3f} of the bound)"
+                       if dtype != "float32" else "") + "; "
+                    + ", ".join(f"{k} rel {v:.2e}" for k, v in rel.items()))
+            del gpu_d, cpu_d
+
+        # the main path: counts set to 0 just before, read just after
+        obs = mimic_obs(cfg, BS, dev)
+        do = mimic_do("age", obs)
+        g = torch.Generator().manual_seed(SEED + 110)
+        reset_counts()
+        res = dscm.forward(obs, do, generator=g)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = dict({k: 0 for k in counts}, fused_sample_kl=2 * n_sto)
+        if counts != want or enc_k2 or dec_k2:
+            raise AssertionError(f"mimic192 DSCM.forward: launches {counts}, expected {want} "
+                                 f"(K2 covers {enc_k2} + {dec_k2} blocks, expected none)")
+        cf_x = res["cfs"]["x"]
+        if cf_x.shape != obs["x"].shape or cf_x.dtype != torch.float32 \
+                or not torch.isfinite(cf_x).all() or cf_x.abs().max() > 1 \
+                or res["cfs"]["race"].shape != (BS, 3) \
+                or not set(res["cfs"]["finding"].unique().tolist()) <= {0.0, 1.0} \
+                or not all(torch.isfinite(res[k]) for k in ("elbo", "nll", "kl", "aux_loss",
+                                                              "loss")):
+            raise AssertionError("mimic192 main path: cf_x, a parent or a loss term is malformed")
+        out["launches"] = counts
+        out["findings_changed"] = int((res["cfs"]["finding"] != obs["finding"]).sum())
+        log("mimic", f"main path {out['config']} DSCM.forward do(age = -0.6) bs {BS}: launches "
+                     f"{counts} (K1 2 x {n_sto}; K2 covers no block: the flagship's blocks are "
+                     f"GELU 1x1-3x3-3x3-1x1, not light); {out['findings_changed']} findings "
+                     f"changed; elbo {res['elbo'].item():.5f}")
+
+        times = forward_times(dscm, obs, do, g)
+        out["profile"] = profile_calls(lambda: dscm.forward(obs, do, generator=g), 3, "forward")
+        feats_in = res["cfs"]["x"]
+        out["trunk_ms"] = cuda_time_ms([lambda: dscm.predictor.trunk(feats_in)], reps=20,
+                                       per_graph=4)
+    ms = statistics.median(times)
+    device_ms = out["profile"].get("device_ms_per_forward")
+    out.update({"forward_ms": ms, "forward_ms_all": times, "cf_per_s": BS / ms * 1e3,
+                "trunk_share_of_device": None if not device_ms else out["trunk_ms"] / device_ms,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    log("mimic", f"mimic192 bf16 DSCM.forward bs {BS}: median {ms:.3f} ms over 20 calls (min "
+                 f"{min(times):.3f}, max {max(times):.3f}) = {BS / ms * 1e3:.1f} cf/s; the "
+                 f"ResNet-18 trunk {out['trunk_ms']:.3f} ms of device time a call at bs {BS}"
+                 + (f" ({out['trunk_share_of_device']:.1%} of a forward's)" if device_ms else "")
+                 + f"; K1's bound a forward {out['k1_bound_ms_per_forward']:.3f} ms")
+    reset_counts()
+    return out
+
+
 def turn(tree):
     """One turn of the comparison of two trees' kernels, run in a process of
     its own with ``tree``'s package first on the path: K2's float32 kernel
@@ -2172,18 +2399,20 @@ def main() -> int:
     uk_samp = phase_ukbb_sample()
     uk_train = phase_ukbb_train()
     uk64 = phase_ukbb64()
+    mim = phase_mimic()
     turns = phase_turns(os.path.abspath(args.parent)) if args.parent else None
     # launches on the main paths, each counted from 0: DSCM.forward (the
-    # Morpho-MNIST and the ukbb192 serving slices), HVAE.sample on the DMoL
-    # head and on ukbb192, train() through cli.main on each configuration and
-    # the ukbb192 train step
+    # Morpho-MNIST, ukbb192, ukbb64 and mimic192 serving slices),
+    # HVAE.sample on the DMoL head and on ukbb192, train() through cli.main
+    # on each configuration and the ukbb192 train step
     by_path = {"DSCM.forward morphomnist": {"fused_sample_kl": sl["launches"]},
                "HVAE.sample cmnist diag_dmol": samp["launches"]}
     by_path.update({f"cli.main train {n}": e["launches"] for n, e in entry.items()})
     by_path.update({"DSCM.forward ukbb192 bf16": uk["launches"],
                     "HVAE.sample ukbb192 bf16": uk_samp["launches"],
                     "train_step ukbb192 bf16": uk_train["launches"],
-                    "DSCM.forward ukbb64 float32": uk64["launches"]})
+                    "DSCM.forward ukbb64 float32": uk64["launches"],
+                    "DSCM.forward mimic192 bf16": mim["launches"]})
 
     # K2's float32 kernel also runs in the float32 card-vs-CPU checks, each
     # counted from 0; those launches are listed apart
@@ -2204,7 +2433,9 @@ def main() -> int:
     kernels = [
         row("fused_sample_kl", "causal_gen_tpu_torch/csrc/sample_kl.cu",
             "causal_gen_tpu/ops/pallas_kernels.py:109",
-            "phase K1 (injected eps at every slice shape + ragged; Philox statistics)", k1,
+            "phase K1 (injected eps at every slice shape + ragged; Philox statistics) and "
+            "phase mimic (injected eps at the mimic192 path's shapes)",
+            dict(k1, max_abs_err=max(k1["max_abs_err"], mim["k1_max_abs_err"])),
             ms_inputs_in_l2=k1["ms_l2"], ms_philox=k1["ms_philox"],
             bound_ms_philox=k1["bound_ms_philox"]),
         row("fused_sample_kl_bwd", "causal_gen_tpu_torch/csrc/sample_kl.cu",
@@ -2249,7 +2480,7 @@ def main() -> int:
     record = {"device": name, "nvidia_smi": smi, "build_s": build_s, "k1": k1, "k1_bwd": k1b,
               "k3": k3, "k4": k4, "k2": k2, "slice": sl, "sample": samp, "train": train,
               "entry": entry, "ukbb": uk, "ukbb_sample": uk_samp, "ukbb_train": uk_train,
-              "ukbb64": uk64, "turns": turns, "kernels": kernels,
+              "ukbb64": uk64, "mimic": mim, "turns": turns, "kernels": kernels,
               "total_s": time.perf_counter() - t_start}
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)

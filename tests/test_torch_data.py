@@ -121,4 +121,4 @@ def test_prefetch_loader_is_the_loader_in_order():
 
 def test_unported_datasets_refuse():
     with pytest.raises(NotImplementedError):
-        setup_datasets(tget("mimic192"))
+        setup_datasets(tget("vol3d32"))

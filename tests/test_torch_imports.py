@@ -47,6 +47,16 @@ def test_kernel_wrappers_have_no_fallback(name):
     assert not handlers, f"ops/{name}.py must not catch errors of a kernel's build or launch"
 
 
+def test_the_mimic_slice_modules_are_checked():
+    """The modules the mimic192 slice and the checkpoint converter add to or
+    change are among those held to the rules above."""
+    checked = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    for rel in ("convert.py", "pgm/base.py", "pgm/modules.py", "pgm/flow_pgm.py", "pgm/dscm.py",
+                "data/datasets.py"):
+        assert f"causal_gen_tpu_torch/{rel}" in checked, rel
+    assert "chip_smoke.py" in checked
+
+
 def test_every_module_imports_without_jax():
     """Import every module of the package in a fresh interpreter that refuses
     JAX and the JAX package."""

@@ -61,9 +61,14 @@ def pgm_pair(seed=0, setup_predictors=True):
     attrs = {k: jnp.asarray(v) for k, v in obs.items() if k != "x"}
     key = jax.random.PRNGKey(seed)
     jpgm = JFlowPGM(setup_predictors=setup_predictors, input_res=RES)
-    params = to_numpy(jpgm.init({"params": key, "sample": key},
-                                jnp.asarray(obs["x"]) if setup_predictors else None, attrs,
-                                method=jpgm.init_all)["params"])
+    # the parameters a sup_aux checkpoint holds (its init runs
+    # anticausal_logprob) or a sup_pgm one (the SCM's nets)
+    if setup_predictors:
+        params = jpgm.init({"params": key, "sample": key}, jnp.asarray(obs["x"]),
+                           method=jpgm.anticausal_logprob, **attrs)
+    else:
+        params = jpgm.init({"params": key, "sample": key}, None, attrs, method=jpgm.init_all)
+    params = to_numpy(params["params"])
     r = np.random.default_rng(seed + 100)
     for k in ("s_logit", "m_logit", "age_widths", "age_heights", "age_derivs", "age_lambdas"):
         params[k] = r.normal(0, 1, params[k].shape).astype(np.float32)
