@@ -5,6 +5,12 @@ Counterpart of ``causal_gen_tpu/cli/main.py`` (reference src/main.py), with
 
     python -m causal_gen_tpu_torch.cli.main --hps morphomnist --data_dir DIR \\
         --epochs 10 [--device cuda] [--max_batches N] [--save_dir DIR]
+    python -m causal_gen_tpu_torch.cli.main --hps morphomnist --cond_prior ...
+    python -m causal_gen_tpu_torch.cli.main --hps vol3d32 --epochs 1   # 3-D, no files
+
+``--cond_prior`` (with the registry's ``cond_drop_from``) and
+``--q_correction`` reach the HVAE; ``--hps vol3d32`` trains the 3-D HVAE on
+the generated sphere volumes.
 
 Fields of the JAX CLI that only steer the JAX programs (``--use_pallas``,
 ``--stage_scan``, ``--remat``, ``--steps_per_call``, ...) are accepted and go

@@ -21,10 +21,11 @@ Leaves change as follows:
 
 - conv ``kernel`` (4-D, HWIO) -> ``weight`` in OIHW (the 1x1 convs of the
   heads too: DmolNet's ``likelihood/conv`` keeps the JAX channel order of
-  its 10K outputs);
+  its 10K outputs); a 3-D conv's (5-D, DHWIO) -> OIDHW;
 - dense ``kernel`` (2-D, (in, out)) -> ``weight`` in (out, in);
 - norm ``scale`` -> ``weight``;
-- the decoder's per-resolution ``bias_<r>`` (1, r, r, C) -> (1, C, r, r);
+- the decoder's per-resolution ``bias_<r>`` (1, r, r, C) -> (1, C, r, r),
+  and a volume's (1, r, r, r, C) -> (1, C, r, r, r);
 - every other leaf (biases, ``x_logscale_kernel``, spline and logit
   parameters) is copied as it is.
 """
@@ -47,16 +48,16 @@ ROLES = ("vae", "pgm", "aux")
 
 def _leaf(path: str, name: str, value: np.ndarray) -> tuple:
     a = np.asarray(value, dtype=np.float32)
-    if name == "kernel" and a.ndim == 4:
-        return "weight", a.transpose(3, 2, 0, 1)
+    if name == "kernel" and a.ndim in (4, 5):  # (*spatial, I, O) -> (O, I, *spatial)
+        return "weight", a.transpose(a.ndim - 1, a.ndim - 2, *range(a.ndim - 2))
     if name == "kernel" and a.ndim == 2:
         return "weight", a.T
     if name == "kernel":
         raise ValueError(f"{path}: kernel of rank {a.ndim} has no converter")
     if name == "scale":
         return "weight", a
-    if _RES_BIAS.fullmatch(name) and a.ndim == 4:
-        return name, a.transpose(0, 3, 1, 2)
+    if _RES_BIAS.fullmatch(name) and a.ndim in (4, 5):  # (1, *spatial, C) -> (1, C, *spatial)
+        return name, a.transpose(0, a.ndim - 1, *range(1, a.ndim - 1))
     return name, a
 
 

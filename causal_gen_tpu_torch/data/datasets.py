@@ -1,12 +1,12 @@
-"""Datasets of the training path: Morpho-MNIST, Colour-MNIST, UK Biobank and
-MIMIC-CXR.
+"""Datasets of the training path: Morpho-MNIST, Colour-MNIST, UK Biobank,
+MIMIC-CXR and the synthetic 3-D volumes.
 
 Counterpart of ``causal_gen_tpu/data/datasets.py`` (reference src/datasets.py
-MorphoMNIST 202-304, ColourMNIST 307-389, UKBB 22-135, MIMIC 392-531). Each
-dataset is held as contiguous numpy arrays (uint8 NHWC images and float32
-parents); a batch is {"x": uint8 (B,H,W,C), "pa": float32 (B, context_dim)}
-with the parents in ``cfg.parents_x`` order (digit, colour and race one-hot).
-The 3-D dataset comes with its slice: ``setup_datasets`` refuses it.
+MorphoMNIST 202-304, ColourMNIST 307-389, UKBB 22-135, MIMIC 392-531; the
+volumes have no reference counterpart). Each dataset is held as contiguous
+numpy arrays (uint8 NHWC images, NDHWC volumes, and float32 parents); a batch
+is {"x": uint8 (B,H,W,C), "pa": float32 (B, context_dim)} with the parents in
+``cfg.parents_x`` order (digit, colour and race one-hot).
 """
 
 from __future__ import annotations
@@ -258,7 +258,52 @@ def mimic(cfg: Config, data_dir: Optional[str] = None) -> Dict[str, ArrayDataset
     return {s: build(s) for s in ("train", "valid", "test")}
 
 
-DATASETS = {"morphomnist": morphomnist, "cmnist": cmnist, "ukbb": ukbb, "mimic": mimic}
+# ---------------------------------------------------------------------------
+# Synthetic 3-D volumes (causal_gen_tpu/data/datasets.py:318-370)
+# ---------------------------------------------------------------------------
+
+VOL3D_MIN_MAX = {"radius": (0.15, 0.40), "intensity": (96.0, 255.0)}
+
+
+def make_vol3d(n: int, res: int, seed: int = 0) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+    """Synthetic spheres with a causal parent pair, the JAX package's arrays
+    for the same seed: radius ~ U(0.15, 0.40) (a fraction of the half-side),
+    intensity = 255 - 300 (radius - 0.15) + N(0, 8) clipped to [96, 255];
+    voxels intensity * sigmoid((radius - d) / s) about a jittered centre,
+    s ~ one voxel, as uint8 (n, res, res, res, 1)."""
+    rng = np.random.default_rng(seed)
+    radius = rng.uniform(*VOL3D_MIN_MAX["radius"], size=n).astype(np.float32)
+    intensity = 255.0 - 300.0 * (radius - 0.15) + rng.normal(0.0, 8.0, size=n)
+    intensity = np.clip(intensity, *VOL3D_MIN_MAX["intensity"]).astype(np.float32)
+    center = rng.uniform(-0.1, 0.1, size=(n, 3)).astype(np.float32)
+
+    ax = np.linspace(-1.0, 1.0, res, dtype=np.float32)
+    grid = np.stack(np.meshgrid(ax, ax, ax, indexing="ij"))  # (3, res, res, res)
+    sharp = 2.0 / res
+    vols = np.empty((n, res, res, res, 1), np.uint8)
+    for i in range(n):
+        d = np.sqrt(((grid - center[i][:, None, None, None]) ** 2).sum(0))
+        soft = 1.0 / (1.0 + np.exp(-(radius[i] - d) / sharp))
+        vols[i, ..., 0] = np.clip(intensity[i] * soft, 0, 255).astype(np.uint8)
+    return vols, {"radius": radius, "intensity": intensity}
+
+
+def vol3d(cfg: Config, data_dir: Optional[str] = None) -> Dict[str, ArrayDataset]:
+    """train/valid/test of 512/128/128 generated volumes (seeds cfg.seed,
+    +1, +2), the parents scaled to [-1, 1]; no files, no augmentation."""
+
+    def build(n: int, seed: int) -> ArrayDataset:
+        vols, raw = make_vol3d(n, cfg.input_res, seed=seed)
+        attrs = {k: normalize(v, x_min=VOL3D_MIN_MAX[k][0], x_max=VOL3D_MIN_MAX[k][1])
+                 .astype(np.float32) for k, v in raw.items()}
+        return ArrayDataset(images=vols, attrs=attrs, columns=tuple(cfg.parents_x))
+
+    return {"train": build(512, cfg.seed), "valid": build(128, cfg.seed + 1),
+            "test": build(128, cfg.seed + 2)}
+
+
+DATASETS = {"morphomnist": morphomnist, "cmnist": cmnist, "ukbb": ukbb, "mimic": mimic,
+            "vol3d": vol3d}
 
 
 def setup_datasets(cfg: Config, data_dir: Optional[str] = None) -> Dict[str, ArrayDataset]:

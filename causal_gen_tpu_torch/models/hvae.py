@@ -12,8 +12,10 @@ differ only in their random stream, so the port has the one path. Training
 differentiates ``forward`` (the ELBO, with the free-bits branch) through
 every block and through K1; a DMoL head's NLL goes through K3.
 
-Random draws take ``noise``, an iterator of draws consumed in order: the
-standard normals of the posterior or prior draws in block order, then, for
+Random draws take ``noise``, an iterator of draws consumed in order: under
+``forward(train=True)`` with conditioning dropout, first the option (an
+integer tensor in {0, 1, 2}); the standard normals of the posterior or prior
+draws in block order, then, for
 ``sample(return_loc=False)``, the head's own (a standard normal for DGaussNet,
 the uniforms (u_mix, u) for DmolNet). Else they come from a
 ``torch.Generator``, a CPU one on any device. Tests feed the JAX side's noise
@@ -27,9 +29,22 @@ float32 (causal_gen_tpu/models/hvae.py:47-56, 130, 142, 375-381, 609). The
 parameters stay float32. The light blocks that K2 covers run it outside
 autograd (``models/blocks.py::Block``).
 
-Not ported, and refused by ``HVAE``: ``cond_prior``, ``q_correction`` and 3-D
-volumes (later slices); the JAX ``stage_scan`` layout is a compile device and
-has no counterpart here.
+The variants of the JAX model (causal_gen_tpu/models/hvae.py):
+
+- ``cond_prior``: each prior block also reads the broadcast parents
+  ``pa_sto``. When ``forward(train=True)`` (the train step), conditioning
+  dropout draws an option in {0, 1, 2} once a pass (``Decoder._drop_option``,
+  JAX ``_drop_cond`` :384-390) and option 0 zeroes ``pa[:, cond_drop_from:]``
+  in the priors' input; the posterior keeps the raw parents. ``abduct``
+  returns one dict a stochastic block, ``{z, q_loc, q_logscale}``, and with
+  ``cf_parents`` the mixture abduction (:634-665).
+- ``q_correction``: the prior reads the residual stream h, and no block has a
+  ``z_feat_proj``.
+- ``spatial_dims=3``: NCDHW volumes through Conv3d blocks (``blocks.py``),
+  r^3 biases, the KL summed over every spatial axis, a 3-D ``DGaussNet``.
+
+The JAX ``stage_scan`` layout is a compile device and has no counterpart
+here (``convert.unstack_decoder`` reads its checkpoints).
 """
 
 from __future__ import annotations
@@ -48,6 +63,7 @@ from causal_gen_tpu_torch.models.blocks import (
     conv_in,
     init_params,
     lecun_normal_,
+    make_conv,
     upsample_nearest,
 )
 from causal_gen_tpu_torch.models.likelihoods import make_likelihood
@@ -58,9 +74,10 @@ Noise = Optional[Iterator[Tensor]]
 
 
 def _bcast_pa(pa: Tensor, like: Tensor) -> Tensor:
-    """(B, ctx) -> (B, ctx, H, W) at ``like``'s spatial size."""
+    """(B, ctx) -> (B, ctx, *spatial) at ``like``'s spatial size."""
     b, c = pa.shape
-    return pa.reshape(b, c, 1, 1).expand(b, c, like.shape[2], like.shape[3])
+    nd = like.dim() - 2
+    return pa.reshape((b, c) + (1,) * nd).expand((b, c) + tuple(like.shape[2:]))
 
 
 def _next(noise: Noise) -> Optional[Tensor]:
@@ -86,34 +103,43 @@ class DecoderBlock(nn.Module):
     def __init__(self, in_width: int, out_width: int, resolution: int, z_dim: int,
                  context_dim: int, bottleneck_factor: int, stochastic: bool,
                  version: Optional[str], n_blocks: int, posterior_scale: float = 1.0,
-                 last: bool = False, dtype: Optional[torch.dtype] = None):
+                 last: bool = False, dtype: Optional[torch.dtype] = None,
+                 cond_prior: bool = False, q_correction: bool = False, spatial_dims: int = 2):
         super().__init__()
+        nd = spatial_dims
         self.dtype = dtype
         self.resolution = resolution
         self.z_dim = z_dim
         self.stochastic = stochastic
+        self.cond_prior = cond_prior
+        self.q_correction = q_correction
         bottleneck = in_width // bottleneck_factor
         k = 3 if resolution > 2 else 1
         scale = float(math.sqrt(1.0 / n_blocks))
-        self.prior = Block(in_width, bottleneck, 2 * z_dim + in_width, k, residual=False,
-                           version=version, last_scale=0.0,  # zero-init prior head (vae.py:308)
-                           dtype=dtype)
+        self.prior = Block(in_width + (context_dim if cond_prior else 0), bottleneck,
+                           2 * z_dim + in_width, k, residual=False, version=version,
+                           last_scale=0.0,  # zero-init prior head (vae.py:308)
+                           dtype=dtype, spatial_dims=nd)
         if stochastic:
             self.posterior = Block(2 * in_width + context_dim, bottleneck, 2 * z_dim, k,
                                    residual=False, version=version,
-                                   last_scale=posterior_scale, dtype=dtype)
-        self.z_proj = nn.Conv2d(z_dim + context_dim, in_width, 1)
+                                   last_scale=posterior_scale, dtype=dtype, spatial_dims=nd)
+        self.z_proj = make_conv(z_dim + context_dim, in_width, 1, nd)
         self.z_proj_scale = scale
-        # the final block's z feeds no later prior, so flax never creates it
-        self.z_feat_proj = None if last else nn.Conv2d(z_dim + in_width, out_width, 1)
+        # the final block's z feeds no later prior, so flax never creates it;
+        # under q_correction the prior reads h and no block has one
+        self.z_feat_proj = (None if last or q_correction
+                            else make_conv(z_dim + in_width, out_width, 1, nd))
         self.conv = Block(in_width, bottleneck, out_width, k, residual=True,
-                          version=version, last_scale=scale, dtype=dtype)
+                          version=version, last_scale=scale, dtype=dtype, spatial_dims=nd)
 
     def init_extra_(self, generator: Optional[torch.Generator]) -> None:
         lecun_normal_(self.z_proj.weight, generator, self.z_proj_scale)
 
-    def forward_prior(self, z: Tensor, t: Optional[float] = None
+    def forward_prior(self, z: Tensor, pa: Optional[Tensor] = None, t: Optional[float] = None
                       ) -> Tuple[Tensor, Tensor, Tensor]:
+        if self.cond_prior:
+            z = _cat([z, _bcast_pa(pa, z)], self.dtype)
         z = self.prior(z)
         zd = self.z_dim
         stats = z[:, : 2 * zd].float()
@@ -147,6 +173,7 @@ class Decoder(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.dtype = compute_dtype(cfg)
+        self.spatial_dims = nd = cfg.spatial_dims
         stages = plan_decoder_blocks(cfg)
         n = len(stages)
         rev_widths = tuple(reversed(cfg.model_widths))
@@ -156,15 +183,16 @@ class Decoder(nn.Module):
                 width, stages[min(n - 1, i + 1)][1], res, cfg.z_dim, cfg.context_dim,
                 cfg.bottleneck, res <= cfg.z_max_res, cfg.block_version, n,
                 cfg.posterior_init_scale, last=i + 1 == n, dtype=self.dtype,
+                cond_prior=cfg.cond_prior, q_correction=cfg.q_correction, spatial_dims=nd,
             ))
             self.add_module(f"blocks_{i}", blocks[-1])
         self._blocks = blocks
-        # per-resolution learned biases (reference vae.py:211-218)
+        # per-resolution learned biases (reference vae.py:211-218), r^nd each
         all_res = sorted(set(r for r, _ in stages))
         for i, r in enumerate(all_res):
             if r <= cfg.bias_max_res:
                 self.register_parameter(
-                    f"bias_{r}", nn.Parameter(torch.zeros(1, rev_widths[i], r, r)))
+                    f"bias_{r}", nn.Parameter(torch.zeros((1, rev_widths[i]) + (r,) * nd)))
 
     def _bias_at(self, res: int) -> Optional[Tensor]:
         """The bias at ``res`` in the compute dtype, so that adding it keeps
@@ -177,43 +205,69 @@ class Decoder(nn.Module):
         up = upsample_nearest(h, res)
         return up if b is None else b + up
 
+    def _prior_parents(self, pa: Tensor, train: bool, noise: Noise,
+                       generator: Optional[torch.Generator]) -> Tensor:
+        """The parents the priors read (``pa_sto``, hvae.py:491-507). When
+        training a ``cond_prior`` model with ``cond_drop_from``, an option in
+        {0, 1, 2} is taken from ``noise`` or drawn from ``generator``, and
+        option 0 zeroes ``pa[:, cond_drop_from:]`` (``_drop_cond``, :384-390;
+        option 1 drops the deterministic path, which the HVAE never reads)."""
+        cfg = self.cfg
+        if not (train and cfg.cond_prior and cfg.cond_drop_from is not None):
+            return pa
+        opt = _next(noise)
+        if opt is None:
+            opt = torch.randint(0, 3, (), generator=generator)
+        d = cfg.cond_drop_from
+        return torch.cat([pa[:, :d], pa[:, d:] * (0.0 if int(opt) == 0 else 1.0)], dim=1)
+
     def forward(self, parents: Tensor, acts: Optional[Dict[int, Tensor]] = None,
                 abduct: bool = False, latents: Optional[Sequence[Optional[Tensor]]] = None,
                 noise: Noise = None, generator: Optional[torch.Generator] = None,
-                t: Optional[float] = None) -> Tuple[Tensor, List[Dict[str, Any]]]:
+                t: Optional[float] = None, train: bool = False
+                ) -> Tuple[Tensor, List[Dict[str, Any]]]:
         """Runs every block (reference vae.py:241-300). With ``acts`` each
         stochastic block draws z ~ q(z | z_<i, x, pa) and reports its KL
-        summed over space, (B, z_dim), and with ``abduct`` also z. Without
-        ``acts`` a block takes its entry of ``latents`` or draws from the prior.
-        ``t`` adds log t to every prior and posterior log-scale.
+        summed over space, (B, z_dim), and with ``abduct`` also z (under
+        ``cond_prior`` the dict ``{z, q_loc, q_logscale}``). Without ``acts``
+        a block takes its entry of ``latents`` or draws from the prior (and
+        with ``abduct`` under ``cond_prior`` reports ``{p_loc, p_logscale}``).
+        ``t`` adds log t to every prior and posterior log-scale; ``train``
+        turns conditioning dropout on (``_prior_parents``).
         """
         bs = parents.shape[0]
         n = len(self._blocks)
-        h = z = self._bias_at(1).expand(bs, -1, -1, -1)
+        h = z = self._bias_at(1).expand((bs,) + (-1,) * (self.spatial_dims + 1))
         latents = list(latents or []) + [None] * (n - len(latents or []))
         pa = parents
+        pa_sto = self._prior_parents(pa, train, noise, generator)
         stats: List[Dict[str, Any]] = []
         for i, block in enumerate(self._blocks):
             res = block.resolution
             if h.shape[2] < res:
                 h = self._up(h, res)
-            # the prior depends on the previous prior latent only
-            p_input = self._up(z, res) if z.shape[2] < res else z
-            p_loc, p_logscale, p_feat = block.forward_prior(p_input, t)
+            if block.q_correction:
+                p_input = h
+            else:  # the prior depends on the previous prior latent only
+                p_input = self._up(z, res) if z.shape[2] < res else z
+            p_loc, p_logscale, p_feat = block.forward_prior(p_input, pa_sto, t)
             if block.stochastic:
                 if acts is not None:
                     q_loc, q_logscale = block.forward_posterior(h, acts[res], pa, t)
                     z, kl = fused_sample_kl(
                         q_loc.contiguous(), q_logscale.contiguous(), p_loc.contiguous(),
                         p_logscale.contiguous(), eps=_next(noise), generator=generator)
-                    stat: Dict[str, Any] = dict(kl=kl.sum(dim=(2, 3)))
-                    if abduct:
-                        stat["z"] = z
+                    stat: Dict[str, Any] = dict(kl=kl.sum(dim=tuple(range(2, kl.dim()))))
+                    if abduct:  # z* needs the q stats under cond_prior (vae.py:271-276)
+                        stat["z"] = (dict(z=z, q_loc=q_loc, q_logscale=q_logscale)
+                                     if block.cond_prior else z)
                     stats.append(stat)
                 elif latents[i] is not None:
                     z = latents[i]
                 else:
                     z = sample_gaussian(p_loc, p_logscale, _next(noise), generator)
+                    if abduct and block.cond_prior:  # p for the mixture abduction
+                        stats.append(dict(z=dict(p_loc=p_loc, p_logscale=p_logscale)))
             else:
                 z = p_loc
             h = h + p_feat
@@ -235,29 +289,31 @@ class HVAE(nn.Module):
     def __init__(self, cfg: Config, device: "str | torch.device" = "cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        unsupported = [k for k, bad in (
-            ("cond_prior", cfg.cond_prior), ("q_correction", cfg.q_correction),
-            ("spatial_dims", cfg.spatial_dims != 2),
-        ) if bad]
         if cfg.dtype not in ("float32", "bfloat16"):
             raise ValueError(f"HVAE: dtype {cfg.dtype!r} is neither float32 nor bfloat16")
-        if unsupported:
-            raise NotImplementedError(f"HVAE port: {unsupported} not ported yet")
+        if cfg.vae != "hierarchical":
+            raise NotImplementedError(f"HVAE port: vae={cfg.vae!r} (the simple VAE) not ported yet")
         self.cfg = cfg
+        self.cond_prior = cfg.cond_prior
         self.encoder = Encoder(cfg.enc_stages, cfg.model_widths, cfg.bottleneck,
-                               cfg.input_channels, cfg.block_version, compute_dtype(cfg))
+                               cfg.input_channels, cfg.block_version, compute_dtype(cfg),
+                               cfg.spatial_dims)
         self.decoder = Decoder(cfg)
         self.likelihood = make_likelihood(cfg.input_channels, cfg.model_widths[0],
-                                          cfg.x_like, cfg.std_init)
+                                          cfg.x_like, cfg.std_init, cfg.spatial_dims)
         self.free_bits = cfg.kl_free_bits
         init_params(self, generator)
         self.to(resolve_device(device))
 
     def forward(self, x: Tensor, parents: Tensor, beta: float = 1.0, noise: Noise = None,
-                generator: Optional[torch.Generator] = None) -> Dict[str, Tensor]:
-        """Negative ELBO per pixel, with its NLL and KL terms."""
+                generator: Optional[torch.Generator] = None, train: bool = True
+                ) -> Dict[str, Tensor]:
+        """Negative ELBO per pixel, with its NLL and KL terms. ``train``
+        (default True, as in JAX) turns conditioning dropout on; evaluation
+        and ``DSCM.forward`` pass False."""
         acts = self.encoder(x)
-        h, stats = self.decoder(parents, acts=acts, noise=noise, generator=generator)
+        h, stats = self.decoder(parents, acts=acts, noise=noise, generator=generator,
+                                train=train)
         nll_pp = self.likelihood.nll(h.float(), x)
         if self.free_bits > 0:
             kl_pp = 0.0
@@ -282,15 +338,39 @@ class HVAE(nn.Module):
         draw = None if return_loc else _next(noise)
         return self.likelihood.sample(h.float(), return_loc, t, draw, generator)
 
-    def abduct(self, x: Tensor, parents: Tensor, noise: Noise = None,
+    def abduct(self, x: Tensor, parents: Tensor, cf_parents: Optional[Tensor] = None,
+               alpha: float = 0.5, noise: Noise = None,
                generator: Optional[torch.Generator] = None, t: Optional[float] = None,
-               ) -> List[Tensor]:
+               ) -> List[Any]:
         """Latents z ~ q(z | x, pa), one per stochastic block, at temperature
-        ``t`` (reference vae.py:466-516 without cond_prior)."""
+        ``t`` (reference vae.py:466-516): tensors, or under ``cond_prior`` the
+        dicts ``{z, q_loc, q_logscale}``. Under ``cond_prior`` with
+        ``cf_parents``, the mixture abduction (causal_gen_tpu/models/hvae.py:
+        634-665): a prior pass under ``cf_parents`` (its draws after the
+        posterior's) gives p, and each block's z* = r_loc + r_scale u with
+        u = (z - q_loc) / q_scale, r_loc = alpha q_loc + (1 - alpha) p_loc,
+        r_scale = sqrt(alpha^2 q_scale^2 + (1 - alpha)^2 p_scale^2), times
+        ``t`` when given."""
         acts = self.encoder(x)
         _, q_stats = self.decoder(parents, acts=acts, abduct=True, noise=noise,
                                   generator=generator, t=t)
-        return [s["z"] for s in q_stats]
+        qs = [s["z"] for s in q_stats]
+        if not (self.cond_prior and cf_parents is not None):
+            return qs
+        _, p_stats = self.decoder(cf_parents, abduct=True, noise=noise, generator=generator,
+                                  t=t)
+        cf_zs = []
+        for q, p in zip(qs, (s["z"] for s in p_stats)):
+            q_loc, q_scale = q["q_loc"], torch.exp(q["q_logscale"])
+            u = (q["z"] - q_loc) / q_scale  # exogenous noise u ~ N(0, I)
+            p_loc, p_var = p["p_loc"], torch.exp(p["p_logscale"]) ** 2
+            # mixture r(z) = a q + (1 - a) p, independence assumed (vae.py:495-500)
+            r_loc = alpha * q_loc + (1 - alpha) * p_loc
+            r_scale = torch.sqrt(alpha**2 * q_scale**2 + (1 - alpha) ** 2 * p_var)
+            if t is not None:
+                r_scale = r_scale * t
+            cf_zs.append(r_loc + r_scale * u)
+        return cf_zs
 
     def forward_latents(self, latents: Sequence[Optional[Tensor]], parents: Tensor,
                         noise: Noise = None, generator: Optional[torch.Generator] = None,

@@ -8,7 +8,8 @@ slice.
 
 Both heads have the JAX surface ``nll(h, x)`` and ``sample(h, return_loc,
 t)``; ``sample`` also takes its draw (a standard normal, or the DMoL
-uniforms) or else a ``torch.Generator``.
+uniforms) or else a ``torch.Generator``. ``DGaussNet`` takes ``spatial_dims``
+(1x1x1 convs over NCDHW volumes); a DMoL head is 2-D only, as in JAX.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Optional, Tuple
 import torch
 from torch import Tensor, nn
 
-from causal_gen_tpu_torch.models.blocks import lecun_normal_
+from causal_gen_tpu_torch.models.blocks import lecun_normal_, make_conv
 from causal_gen_tpu_torch.ops.distributions import (
     EPS_LOGSCALE,
     discretized_gaussian_nll,
@@ -39,7 +40,7 @@ class DGaussNet(nn.Module):
     """
 
     def __init__(self, input_channels: int, width: int, x_like: str = "diag_dgauss",
-                 std_init: float = 0.0):
+                 std_init: float = 0.0, spatial_dims: int = 2):
         super().__init__()
         cov = x_like.split("_")[0]
         if cov not in ("fixed", "shared", "diag"):
@@ -47,10 +48,11 @@ class DGaussNet(nn.Module):
         self.covariance = cov
         self.input_channels = input_channels
         self.std_init = std_init
-        self.x_loc = nn.Conv2d(width, input_channels, 1)
+        self.x_loc = make_conv(width, input_channels, 1, spatial_dims)
         self.x_logscale_kernel = nn.Parameter(torch.zeros(width, input_channels))
         self.x_logscale_bias = nn.Parameter(torch.zeros(input_channels))
-        self.channel_coeffs = nn.Conv2d(width, 3, 1) if input_channels == 3 else None
+        self.channel_coeffs = (make_conv(width, 3, 1, spatial_dims) if input_channels == 3
+                               else None)
 
     def init_extra_(self, generator: Optional[torch.Generator]) -> None:
         with torch.no_grad():
@@ -69,7 +71,8 @@ class DGaussNet(nn.Module):
                 k, b = k.detach(), b.detach()
             elif self.covariance == "shared":
                 k = k.detach()
-        return torch.einsum("bchw,co->bohw", h, k) + b[None, :, None, None]
+        spatial = (None,) * (h.dim() - 2)
+        return torch.einsum("bc...,co->bo...", h, k) + b[(None, slice(None)) + spatial]
 
     def forward(self, h: Tensor, x: Optional[Tensor] = None,
                 t: Optional[float] = None) -> Tuple[Tensor, Tensor]:
@@ -149,10 +152,12 @@ class DmolNet(nn.Module):
 
 
 def make_likelihood(input_channels: int, width: int, x_like: str,
-                    std_init: float) -> nn.Module:
+                    std_init: float, spatial_dims: int = 2) -> nn.Module:
     kind = x_like.split("_")[1]
     if kind == "dgauss":
-        return DGaussNet(input_channels, width, x_like, std_init)
+        return DGaussNet(input_channels, width, x_like, std_init, spatial_dims)
     if kind == "dmol":
+        if spatial_dims != 2:  # causal_gen_tpu/models/likelihoods.py:245
+            raise NotImplementedError("DMoL head is RGB-image (2-D) only")
         return DmolNet(input_channels, width)
     raise NotImplementedError(f"{x_like}: only the dgauss and dmol heads are ported so far")

@@ -87,7 +87,7 @@ class DSCM:
         noise: Optional[Iterable[Tensor]] = None,
         t_abduct: Optional[float] = None,
     ) -> Dict[str, Any]:
-        """Counterfactuals of ``obs`` (``x`` NCHW in [-1, 1] plus the parents)
+        """Counterfactuals of ``obs`` (``x`` NC(D)HW in [-1, 1] plus the parents)
         under intervention ``do``, with the factual ELBO and the losses.
         ``t_abduct`` is the temperature of the abduction only; the decodes
         run at t = None (causal_gen_tpu/pgm/dscm.py:121,151-159).
@@ -105,7 +105,7 @@ class DSCM:
         pa = {k: v for k, v in obs.items() if k != "x"}
         _pa = vae_preprocess(cfg, pa)
 
-        vae_out = self.vae(x, _pa, beta=beta, noise=noise, generator=generator)
+        vae_out = self.vae(x, _pa, beta=beta, noise=noise, generator=generator, train=False)
 
         cf_sum = torch.zeros_like(x)
         cf_sq = torch.zeros_like(x)
@@ -114,6 +114,9 @@ class DSCM:
             cf_pa = self.pgm.counterfactual(pa, do, generator=generator, noise=noise)
             _cf_pa = vae_preprocess(cfg, cf_pa)
             zs = self.vae.abduct(x, _pa, noise=noise, generator=generator, t=t_abduct)
+            # cond_prior abduction returns {z, q_loc, q_logscale} dicts
+            # (causal_gen_tpu/pgm/dscm.py:181-184); the decodes take the z
+            zs = [z["z"] if isinstance(z, dict) else z for z in zs]
             cf_loc, cf_scale = self.vae.forward_latents(zs, _cf_pa, noise=noise,
                                                         generator=generator)
             rec_loc, rec_scale = self.vae.forward_latents(zs, _pa, noise=noise,

@@ -12,8 +12,11 @@ the lr schedule, AdamW's moments nor ``ema_updates``, and adds one to
 ``skipped``. ``steps_per_call`` has no counterpart: every step is one call.
 Posterior draws go through K1, and a DMoL head's loss through K3, on the card.
 
-Batches come from ``data/loader.py`` as numpy arrays, x uint8 NHWC; they cross
-to the device as uint8 NCHW and are scaled to [-1, 1] there.
+Batches come from ``data/loader.py`` as numpy arrays, x uint8 NHWC (NDHWC for
+volumes); they cross to the device as uint8 NCHW (NCDHW) and are scaled to
+[-1, 1] there. The train step runs the model with ``train=True``
+(conditioning dropout under ``cond_prior``), the evaluation with ``False``, as
+causal_gen_tpu/train/vae_trainer.py:93,182 do.
 """
 
 from __future__ import annotations
@@ -43,18 +46,19 @@ def preprocess_x(x: Tensor) -> Tensor:
 
 
 def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, Tensor]:
-    """A loader batch on ``device``: x uint8 NHWC -> uint8 NCHW, pa float32."""
+    """A loader batch on ``device``: x uint8 N(D)HWC -> uint8 NC(D)HW, pa float32."""
     x = torch.from_numpy(np.ascontiguousarray(batch["x"])).to(device)
-    return {"x": x.permute(0, 3, 1, 2).contiguous(),
+    return {"x": x.permute(0, x.dim() - 1, *range(1, x.dim() - 1)).contiguous(),
             "pa": torch.from_numpy(np.ascontiguousarray(batch["pa"], np.float32)).to(device)}
 
 
 def train_step(cfg: Config, state: TrainState, batch: Dict[str, Tensor], noise: Noise = None,
                generator: Optional[torch.Generator] = None) -> Dict[str, Tensor]:
     """One optimizer step over ``cfg.accu_steps`` microbatches of ``batch``
-    (x uint8 NCHW, pa), in place on ``state``. ``noise`` gives each
-    microbatch's posterior draws (the parity mode); else they come from
-    ``generator``. Returns the metrics: device scalars, and ``skipped`` as a
+    (x uint8 NC(D)HW, pa), in place on ``state``. ``noise`` gives each
+    microbatch's draws (the parity mode: the dropout option under
+    ``cond_prior`` with ``cond_drop_from``, then the posterior normals); else
+    they come from ``generator``. Returns the metrics: device scalars, and ``skipped`` as a
     float."""
     model = state.model
     accu = cfg.accu_steps
@@ -69,7 +73,8 @@ def train_step(cfg: Config, state: TrainState, batch: Dict[str, Tensor], noise: 
         beta = (cfg.beta * linear_warmup(first_iter + i, cfg.beta_warmup_steps)
                 if cfg.beta_warmup_steps > 0 else cfg.beta)
         out = model(preprocess_x(batch["x"][sl]), batch["pa"][sl], beta=beta,
-                    noise=None if noise is None else iter(noise[i]), generator=generator)
+                    noise=None if noise is None else iter(noise[i]), generator=generator,
+                    train=True)
         (out["elbo"] / accu).backward()
         for k in sums:
             sums[k] = sums[k] + out[k].detach() / accu
@@ -97,7 +102,8 @@ def eval_step(cfg: Config, ema: nn.Module, batch: Dict[str, Tensor], noise: Nois
               generator: Optional[torch.Generator] = None) -> Dict[str, Tensor]:
     """ELBO terms of the EMA parameters on ``batch``."""
     out = ema(preprocess_x(batch["x"]), batch["pa"], beta=cfg.beta,
-              noise=None if noise is None else iter(noise[0]), generator=generator)
+              noise=None if noise is None else iter(noise[0]), generator=generator,
+              train=False)
     return {k: out[k] for k in ("elbo", "nll", "kl")}
 
 

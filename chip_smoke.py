@@ -85,7 +85,28 @@ Phases, one progress line each:
                draws injected; the main path do(age) at bs 32 under
                inference_mode with K1's 76 launches and no other; the time of a
                forward, the profiler, the trunk's device time
-  16. turns  - with --parent DIR (an earlier tree of the repository, unpacked):
+  16. cond_prior - the registry's morphomnist at full width, float32, with
+               cond_prior (checkpoints/final_morpho_cp's configuration:
+               cond_drop_from 2) and with q_correction, seeded weights with
+               the zero heads filled: card against the CPU plain path at bs 2
+               with every draw injected (DSCM.forward do(thickness) 1e-4; the
+               mixture abduction at alpha 0.65, 1e-4; one train step for each
+               dropout option 0/1/2, or one for q_correction, metrics 1e-4 rel
+               and parameters within 2 lr); the main paths at bs 32 with their
+               launch counts (DSCM.forward K1 40, the mixture abduction K1 20,
+               a train step K1 + K1-bwd 20 + 20, K2 none); cond_prior's
+               forward (inference_mode) and step times, the profiler
+  17. vol3d  - the registry's vol3d32 (3-D, bf16, bs 8): K1 and K1-bwd
+               against their plain versions at (8,8,r,r,r), r in {1,4,8,16,32}
+               (the KL's cotangent stride 0 over (D,H,W)); card against the
+               CPU plain path at bs 2 in bf16 (the transfer's bound; ELBO
+               terms 2e-2) and float32 (1e-4): the HVAE counterfactual
+               (ELBO, abduct, forward_latents under the parents and
+               do(radius)), HVAE.sample(t=0.7), one train step; the main paths
+               with their launch counts (counterfactual K1 20, train step
+               K1 + K1-bwd 10 + 10, sample none; K2 0 on each: 3-D blocks run
+               Conv3d); the counterfactual's and the step's times, the profiler
+  18. turns  - with --parent DIR (an earlier tree of the repository, unpacked):
                that tree's K2 float32 kernel at every ukbb shape, K4 in both
                modes and ukbb64 forward against this tree's, in turns (parent,
                this, this, parent), each a process of its own; K4's output
@@ -297,29 +318,28 @@ def phase_k1(cfg):
             "philox_mean": mean, "philox_std": std}
 
 
-def phase_k1_bwd(cfg):
+def k1_bwd_check(shapes, g):
+    """K1-bwd against autograd of K1's plain version on the card at each of
+    ``shapes``, inputs from ``g``, with injected eps and on the Philox path
+    (its eps recovered from z): every cotangent within 1e-5 (1 + |ref|). The
+    KL is summed over every spatial axis as the HVAE sums it, so its
+    cotangent reaches the backward as a stride-0 broadcast (over (H, W), or
+    (D, H, W) for a volume). Returns the largest abs error."""
     import torch
 
-    from causal_gen_tpu_torch.ops.sample_kl import (fused_sample_kl, fused_sample_kl_bwd,
-                                                    fused_sample_kl_bwd_ref, fused_sample_kl_ref)
+    from causal_gen_tpu_torch.ops.sample_kl import fused_sample_kl, fused_sample_kl_ref
 
     dev = torch.device("cuda")
-    g = torch.Generator().manual_seed(SEED + 5)
-
-    def inputs(shape):
-        return [(torch.randn(shape, generator=g) * s).to(dev) for s in (1.0, 0.3, 1.0, 0.3)]
 
     def grads(fn, args, w, v):
-        # the KL is summed over space as the HVAE sums it, so its cotangent
-        # reaches the backward as a stride-0 broadcast
         leaves = [a.clone().requires_grad_() for a in args]
         z, kl = fn(*leaves)
         red = kl.sum(dim=tuple(range(2, kl.dim()))) if kl.dim() > 2 else kl
         return torch.autograd.grad((z * w).sum() + (red * v).sum(), leaves)
 
     max_err = 0.0
-    for shape in k1_shapes(cfg) + [(1_000_003,)]:
-        args = inputs(shape)
+    for shape in shapes:
+        args = [(torch.randn(shape, generator=g) * s).to(dev) for s in (1.0, 0.3, 1.0, 0.3)]
         w = torch.randn(shape, generator=g).to(dev)
         v = torch.randn(shape[:2] if len(shape) > 2 else shape, generator=g).to(dev)
         eps = torch.randn(shape, generator=g).to(dev)
@@ -339,6 +359,21 @@ def phase_k1_bwd(cfg):
                     raise AssertionError(f"K1-bwd ({name}) disagrees with autograd of the plain "
                                          f"version at {shape}: max err {err.max().item():.3e}")
                 max_err = max(max_err, err.max().item())
+    return max_err
+
+
+def phase_k1_bwd(cfg):
+    import torch
+
+    from causal_gen_tpu_torch.ops.sample_kl import fused_sample_kl_bwd, fused_sample_kl_bwd_ref
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(SEED + 5)
+
+    def inputs(shape):
+        return [(torch.randn(shape, generator=g) * s).to(dev) for s in (1.0, 0.3, 1.0, 0.3)]
+
+    max_err = k1_bwd_check(k1_shapes(cfg) + [(1_000_003,)], g)
     log("K1-bwd", f"kernel == autograd of the plain version within 1e-5*(1+|ref|), injected "
                   f"eps and Philox, at {k1_shapes(cfg)} and (1000003,); max abs err {max_err:.3e}")
 
@@ -1871,15 +1906,24 @@ def build_mimic(cfg, device, state=None):
     mods = (HVAE(cfg, device=device, generator=g),
             ChestPGM(setup_predictors=False, device=device, generator=g),
             ChestPGM(setup_predictors=True, input_res=cfg.input_res, device=device, generator=g))
-    with torch.no_grad():
-        for mod, sd in zip(mods, state or [None] * 3):
-            if sd is not None:
-                mod.load_state_dict(sd)
-                continue
-            for p in mod.parameters():
-                if not p.any():
-                    p.add_(0.05 * torch.randn(p.shape, generator=g).to(p.device))
+    for mod, sd in zip(mods, state or [None] * 3):
+        if sd is not None:
+            mod.load_state_dict(sd)
+        else:
+            fill_zero_leaves(mod, g)
     return DSCM(cfg, mods[1], mods[2], mods[0])
+
+
+def fill_zero_leaves(mod, g):
+    """In place: every all-zero parameter of ``mod`` given 0.05 N(0, 1) from
+    ``g`` (flax zero-initialises the prior heads, the posterior heads where
+    ``posterior_init_scale`` is 0, and the biases)."""
+    import torch
+
+    with torch.no_grad():
+        for p in mod.parameters():
+            if not p.any():
+                p.add_(0.05 * torch.randn(p.shape, generator=g).to(p.device))
 
 
 def mimic_obs(cfg, n, device, seed=SEED):
@@ -2035,6 +2079,450 @@ def phase_mimic():
                  f"ResNet-18 trunk {out['trunk_ms']:.3f} ms of device time a call at bs {BS}"
                  + (f" ({out['trunk_share_of_device']:.1%} of a forward's)" if device_ms else "")
                  + f"; K1's bound a forward {out['k1_bound_ms_per_forward']:.3f} ms")
+    reset_counts()
+    return out
+
+
+VARIANTS = {"cond_prior": {"cond_prior": True}, "q_correction": {"q_correction": True}}
+MIXTURE_ALPHA = 0.65
+
+
+def variant_config(variant, bs=BS):
+    """The registry's morphomnist (full width and depth, float32) with
+    ``cond_prior`` (checkpoints/final_morpho_cp's configuration:
+    cond_drop_from 2, context 12) or ``q_correction``."""
+    from causal_gen_tpu_torch.config import get_config
+
+    return get_config("morphomnist", bs=bs, **VARIANTS[variant])
+
+
+def build_variant(cfg, device, state=None):
+    """A Morpho-MNIST DSCM (``build_slice``) on ``cfg``'s HVAE, its all-zero
+    leaves filled (``fill_zero_leaves``: the zero prior heads would keep the
+    parents from every prior), or ``state``."""
+    import torch
+
+    dscm = build_slice(cfg, device, state)
+    if state is None:
+        fill_zero_leaves(dscm.vae, torch.Generator().manual_seed(SEED + 120))
+    return dscm
+
+
+def state_of(*mods):
+    return [{k: v.cpu() for k, v in m.state_dict().items()} for m in mods]
+
+
+def normals(cfg, n, rng, passes=1):
+    """Standard normals for ``passes`` passes of every stochastic block, as
+    CPU tensors (z_dim, r, ..., r each)."""
+    import numpy as np
+    import torch
+
+    nd = cfg.spatial_dims
+    return [torch.from_numpy(rng.standard_normal((n, cfg.z_dim) + (r,) * nd).astype(np.float32))
+            for r in k1_res(cfg) * passes]
+
+
+def k1_bounds(cfg, bs, passes):
+    """The least device time of K1's launches in ``passes`` posterior passes
+    at batch ``bs`` (28 B an element), and of K1's and K1-bwd's in one train
+    step (28 and 40 B an element), from device memory."""
+    elems = sum(bs * cfg.z_dim * r ** cfg.spatial_dims for r in k1_res(cfg))
+    return {"k1_bound_ms_per_call": passes * 28 * elems / HBM_BYTES_PER_S * 1e3,
+            "k1_bound_ms_per_step": 28 * elems / HBM_BYTES_PER_S * 1e3,
+            "k1_bwd_bound_ms_per_step": 40 * elems / HBM_BYTES_PER_S * 1e3}
+
+
+def rel_errs(gpu, cpu, keys):
+    return {k: abs(float(gpu[k]) - float(cpu[k])) / max(abs(float(cpu[k])), 1e-30) for k in keys}
+
+
+def step_card_vs_cpu(cfg, model_state, batch, draws, elbo_rtol, params_held):
+    """One train step on the card and on the CPU from ``model_state`` with the
+    same batch and ``draws``: the metrics' rel errors (at most ``elbo_rtol``)
+    and, with ``params_held``, the parameters within 2 lr (Adam moves an
+    element at most lr a step, so an element whose tiny gradient takes
+    another sign on the card ends at most 2 lr apart). Returns the errors."""
+    import torch
+
+    from causal_gen_tpu_torch.models.hvae import HVAE
+    from causal_gen_tpu_torch.train.state import init_train_state
+    from causal_gen_tpu_torch.train.vae_trainer import to_device, train_step
+
+    ms, states = {}, {}
+    for d in ("cpu", "cuda"):
+        m = HVAE(cfg, device=d)
+        m.load_state_dict(model_state)
+        st = states[d] = init_train_state(cfg, m)
+        lr = st.optimizer.param_groups[0]["lr"]
+        out = train_step(cfg, st, to_device(batch, torch.device(d)),
+                         noise=[[e.to(d) for e in draws]])
+        ms[d] = {k: float(v) for k, v in out.items()}
+    rel = rel_errs(ms["cuda"], ms["cpu"], ("elbo", "nll", "kl", "grad_norm"))
+    out = {"rel_err": rel, "cpu": ms["cpu"]}
+    if ms["cuda"]["skipped"] or ms["cpu"]["skipped"] or \
+            max(rel[k] for k in ("elbo", "nll", "kl")) > elbo_rtol:
+        raise AssertionError(f"train step card vs CPU: {ms}")
+    if params_held:
+        ref, got = states["cpu"].model.state_dict(), states["cuda"].model.state_dict()
+        err = max((got[k].cpu() - ref[k]).abs().max().item() for k in ref)
+        out["params_max_abs_err"] = err
+        if rel["grad_norm"] > elbo_rtol or err > 2 * lr + 1e-6:
+            raise AssertionError(f"train step card vs CPU: grad_norm rel {rel['grad_norm']:.3e}, "
+                                 f"params max err {err:.3e} > 2 lr = {2 * lr:.3e}")
+    return out
+
+
+def phase_cond_prior():
+    """The conditional prior and q_correction HVAEs on the registry's
+    morphomnist at full width and depth, float32, seeded weights: card
+    against the CPU plain path at bs CHECK_BS with every draw injected
+    (DSCM.forward do(thickness); the mixture abduction; one train step for
+    each dropout option); the main paths (DSCM.forward, the mixture
+    abduction, a train step) with the launch counts read around each; the
+    times of a forward at bs BS under inference_mode and of a train step,
+    and the profiler."""
+    import numpy as np
+    import torch
+
+    from causal_gen_tpu_torch.pgm.dscm import vae_preprocess
+    from causal_gen_tpu_torch.train.state import init_train_state
+    from causal_gen_tpu_torch.train.vae_trainer import to_device, train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, cpu_dev = torch.device("cuda"), torch.device("cpu")
+    out = {}
+    for variant in VARIANTS:
+        cfg = variant_config(variant)
+        dscm = build_variant(cfg, "cuda")
+        n_sto = len(k1_res(cfg))
+        res = out[variant] = {"card_vs_cpu": {}}
+        rng = np.random.default_rng(SEED + 121)
+        c = variant_config(variant, CHECK_BS)
+        state = state_of(dscm.vae, dscm.pgm, dscm.predictor)
+        gpu_d, cpu_d = build_variant(c, "cuda", state), build_variant(c, "cpu", state)
+        obs_c = {k: v[:CHECK_BS].cpu() for k, v in synth_obs(c, cpu_dev).items()}
+        do_c = {"thickness": torch.full((CHECK_BS, 1), 0.5)}
+        with torch.inference_mode():
+            noise = normals(c, CHECK_BS, rng, passes=2)
+            gpu = gpu_d.forward({k: v.to(dev) for k, v in obs_c.items()},
+                                {k: v.to(dev) for k, v in do_c.items()},
+                                noise=[e.to(dev) for e in noise])
+            cpu = cpu_d.forward(obs_c, do_c, noise=noise)
+            err = (gpu["cfs"]["x"].cpu() - cpu["cfs"]["x"]).abs().max().item()
+            rel = rel_errs(gpu, cpu, ("elbo", "nll", "kl", "aux_loss", "loss"))
+            res["card_vs_cpu"]["DSCM.forward"] = {"cf_x_max_abs_err": err, "rel_err": rel}
+            if err > 1e-4 or max(rel.values()) > 1e-4:
+                raise AssertionError(f"{variant} DSCM.forward card vs CPU: cf_x {err:.3e}, {rel}")
+            msg = [f"DSCM.forward do(thickness) cf_x {err:.2e}, terms rel "
+                   f"{max(rel.values()):.2e}"]
+            if variant == "cond_prior":
+                pa = vae_preprocess(c, {k: v for k, v in obs_c.items() if k != "x"})
+                cf_pa = pa.clone()
+                cf_pa[:, 0] = 0.5
+                noise = normals(c, CHECK_BS, rng, passes=2)
+                got = gpu_d.vae.abduct(obs_c["x"].to(dev), pa.to(dev), cf_pa.to(dev),
+                                       MIXTURE_ALPHA, noise=iter([e.to(dev) for e in noise]))
+                ref = cpu_d.vae.abduct(obs_c["x"], pa, cf_pa, MIXTURE_ALPHA, noise=iter(noise))
+                err = max((a.cpu() - b).abs().max().item() for a, b in zip(got, ref))
+                res["card_vs_cpu"]["mixture abduct"] = {"max_abs_err": err}
+                if err > 1e-4 or len(got) != n_sto:
+                    raise AssertionError(f"mixture abduct card vs CPU: max err {err:.3e}")
+                msg.append(f"mixture abduct (alpha {MIXTURE_ALPHA}) latents {err:.2e}")
+        del gpu_d, cpu_d
+        batch = synth_batch(c, rng)
+        draws = normals(c, CHECK_BS, rng)
+        options = (0, 1, 2) if variant == "cond_prior" else (None,)
+        kl_by_option = {}
+        for opt in options:
+            head = [] if opt is None else [torch.tensor(opt)]
+            e = step_card_vs_cpu(c, state[0], batch, head + draws, 1e-4, True)
+            kl_by_option[opt] = e["cpu"]["kl"]
+            res["card_vs_cpu"][f"train step option {opt}"] = e
+            msg.append(f"train step{'' if opt is None else f' option {opt}'} metrics rel "
+                       f"{max(e['rel_err'].values()):.2e}, params {e['params_max_abs_err']:.2e}")
+        if variant == "cond_prior" and not (kl_by_option[0] != kl_by_option[1] ==
+                                            kl_by_option[2]):
+            raise AssertionError(f"dropout options: KL {kl_by_option}; option 0 must move it")
+        log("cond_prior", f"{variant} bs {CHECK_BS}: card == CPU plain path (TF32 off, draws "
+                          f"injected): " + "; ".join(msg))
+
+        # the main paths: counts set to 0 just before each, read just after
+        obs = synth_obs(cfg, dev)
+        do = {"thickness": torch.full((BS, 1), 0.5, device=dev)}
+        g = torch.Generator().manual_seed(SEED + 122)
+        zero = dict.fromkeys(read_counts(), 0)
+        paths = {"DSCM.forward": (lambda: dscm.forward(obs, do, generator=g),
+                                  dict(zero, fused_sample_kl=2 * n_sto))}
+        if variant == "cond_prior":
+            pa = vae_preprocess(cfg, {k: v for k, v in obs.items() if k != "x"})
+            cf_pa = pa.clone()
+            cf_pa[:, 0] = 0.5
+            paths["HVAE.abduct mixture"] = (
+                lambda: dscm.vae.abduct(obs["x"], pa, cf_pa, MIXTURE_ALPHA, generator=g),
+                dict(zero, fused_sample_kl=n_sto))
+        res["launches"] = {}
+        with torch.inference_mode():
+            for name, (fn, want) in paths.items():
+                reset_counts()
+                r = fn()
+                torch.cuda.synchronize()
+                counts = read_counts()
+                res["launches"][name] = counts
+                ok = all(torch.isfinite(t).all() for t in (
+                    [r["cfs"]["x"], r["elbo"], r["loss"]] if isinstance(r, dict) else r))
+                if counts != want or not ok:
+                    raise AssertionError(f"{variant} {name}: launches {counts}, expected {want}; "
+                                         f"finite {ok}")
+        st = init_train_state(cfg, dscm.vae)
+        b = to_device(synth_batch(cfg, rng), dev)
+        reset_counts()
+        m = train_step(cfg, st, b, generator=g)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        res["launches"]["train_step"] = counts
+        if counts != expected_counts(cfg, 1) or not math.isfinite(float(m["elbo"])):
+            raise AssertionError(f"{variant} train step: launches {counts}, expected "
+                                 f"{expected_counts(cfg, 1)}; {m}")
+        log("cond_prior", f"{variant} main paths at bs {BS}: " + "; ".join(
+            f"{k} {v['fused_sample_kl']} K1 + {v['fused_sample_kl_bwd']} K1-bwd, K2 "
+            f"{v['fused_light_block']}" for k, v in res["launches"].items()))
+        if variant != "cond_prior":
+            continue
+        with torch.inference_mode():
+            times = forward_times(dscm, obs, do, g)
+            res["profile_forward"] = profile_calls(lambda: dscm.forward(obs, do, generator=g), 3,
+                                                   "forward")
+        for _ in range(2):
+            train_step(cfg, st, b, generator=g)
+        step_times = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_step(cfg, st, b, generator=g)
+            torch.cuda.synchronize()
+            step_times.append((time.perf_counter() - t0) * 1e3)
+        res["profile_step"] = profile_calls(lambda: train_step(cfg, st, b, generator=g), 3, "step")
+        fwd, step = statistics.median(times), statistics.median(step_times)
+        res.update({"forward_ms": fwd, "forward_ms_all": times, "cf_per_s": BS / fwd * 1e3,
+                    "step_ms": step, "step_ms_all": step_times,
+                    "images_per_s": BS / step * 1e3, **k1_bounds(cfg, BS, 2)})
+        log("cond_prior", f"cond_prior bs {BS}: DSCM.forward median {fwd:.3f} ms over 20 (min "
+                          f"{min(times):.3f}, max {max(times):.3f}) = {BS / fwd * 1e3:.1f} cf/s; "
+                          f"train step median {step:.3f} ms over 10 (min {min(step_times):.3f}, "
+                          f"max {max(step_times):.3f}) = {BS / step * 1e3:.1f} images/s; bounds: "
+                          f"K1 {res['k1_bound_ms_per_call']:.4f} ms a forward, K1 + K1-bwd "
+                          f"{res['k1_bound_ms_per_step']:.4f} + "
+                          f"{res['k1_bwd_bound_ms_per_step']:.4f} ms a step")
+    reset_counts()
+    return out
+
+
+VOL3D_BS = 8  # the registry's vol3d32 batch
+
+
+def vol3d_config(dtype="bfloat16", bs=VOL3D_BS):
+    """The registry's vol3d32: widths 8-64, 32^3, light blocks, bf16."""
+    from causal_gen_tpu_torch.config import get_config
+
+    return get_config("vol3d32", bs=bs, dtype=dtype)
+
+
+def vol3d_obs(cfg, n, device, seed=SEED):
+    """Spheres of the vol3d builder (``make_vol3d``), x NCDHW in [-1, 1], the
+    parents (radius, intensity) in [-1, 1], and do(radius = 0.6)."""
+    import numpy as np
+    import torch
+
+    from causal_gen_tpu_torch.data.datasets import VOL3D_MIN_MAX, make_vol3d
+    from causal_gen_tpu_torch.utils.normalization import normalize
+
+    vols, raw = make_vol3d(n, cfg.input_res, seed=seed)
+    x = torch.from_numpy((vols.astype(np.float32) - 127.5) / 127.5).permute(0, 4, 1, 2, 3)
+    pa = torch.from_numpy(np.stack([normalize(raw[k], *VOL3D_MIN_MAX[k]) for k in cfg.parents_x],
+                                   axis=1).astype(np.float32))
+    cf_pa = pa.clone()
+    cf_pa[:, 0] = 0.6
+    return x.contiguous().to(device), pa.to(device), cf_pa.to(device)
+
+
+def hvae_counterfactual(vae, x, pa, cf_pa, noise=None, generator=None):
+    """DSCM.forward's HVAE part, with the parents given: the ELBO
+    (train=False), the abduction, the decodes under ``pa`` and ``cf_pa`` and
+    the transfer cf_x = clip(cf_loc + cf_scale u), u = (x - rec_loc) /
+    rec_scale. ``noise`` is one iterator for both passes."""
+    import torch
+
+    out = vae(x, pa, noise=noise, generator=generator, train=False)
+    zs = vae.abduct(x, pa, noise=noise, generator=generator)
+    cf_loc, cf_scale = vae.forward_latents(zs, cf_pa)
+    rec_loc, rec_scale = vae.forward_latents(zs, pa)
+    u = (x - rec_loc) / torch.clamp(rec_scale, min=1e-12)
+    return dict(out, cf_x=torch.clamp(cf_loc + cf_scale * u, -1.0, 1.0), u=u,
+                cf_scale=cf_scale, rec_scale=rec_scale)
+
+
+def phase_vol3d():
+    """The registry's vol3d32 (3-D, bf16, light blocks, seeded weights, the
+    zero heads filled): K1 and K1-bwd against their plain versions at every
+    (8, 8, r, r, r) of the path; card against the CPU plain path at bs
+    CHECK_BS in bf16 and float32 (the HVAE counterfactual under do(radius),
+    one train step, HVAE.sample at t 0.7); the main paths at bs 8 (the
+    counterfactual, a train step, a sample) with the launch counts read
+    around each, K2's 0 among them; their times and the profiler."""
+    import numpy as np
+    import torch
+
+    from causal_gen_tpu_torch.models.hvae import HVAE
+    from causal_gen_tpu_torch.train.state import init_train_state
+    from causal_gen_tpu_torch.train.vae_trainer import to_device, train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, cpu_dev = torch.device("cuda"), torch.device("cpu")
+    cfg = vol3d_config()
+    n_sto = len(k1_res(cfg))
+    shapes = [(VOL3D_BS, cfg.z_dim) + (r,) * 3 for r in sorted(set(k1_res(cfg)))]
+    g = torch.Generator().manual_seed(SEED + 130)
+    out = {"config": "vol3d32 (registry: widths 8-64, 32^3, light blocks), bf16",
+           "k1_shapes": shapes, "k1_max_abs_err": k1_check(shapes, g),
+           "k1_bwd_max_abs_err": k1_bwd_check(shapes, g)}
+    log("vol3d", f"K1 == plain version within 1e-6*(1+|ref|) and K1-bwd == autograd of it within "
+                 f"1e-5*(1+|ref|) (injected eps and Philox; the KL's cotangent stride 0 over "
+                 f"(D, H, W)) at {shapes}: max abs err {out['k1_max_abs_err']:.3e}, "
+                 f"{out['k1_bwd_max_abs_err']:.3e}")
+    vae = HVAE(cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    fill_zero_leaves(vae, torch.Generator().manual_seed(SEED + 131))
+    if any(b.k2_covered for b in vae.modules() if hasattr(b, "k2_covered")):
+        raise AssertionError("vol3d32: a 3-D block claims K2's 2-D body")
+    state = state_of(vae)[0]
+    rng = np.random.default_rng(SEED + 132)
+    x_c, pa_c, cf_c = vol3d_obs(cfg, CHECK_BS, cpu_dev, seed=SEED + 133)
+    e = 2.0 ** -4
+    out["card_vs_cpu"] = {}
+    for dtype in ("bfloat16", "float32"):
+        c = vol3d_config(dtype, CHECK_BS)
+        gpu_m, cpu_m = HVAE(c, device="cuda"), HVAE(c, device="cpu")
+        gpu_m.load_state_dict(state)
+        cpu_m.load_state_dict(state)
+        entry = out["card_vs_cpu"][dtype] = {}
+        with torch.inference_mode():
+            noise = normals(c, CHECK_BS, rng, passes=2)
+            reset_counts()
+            gpu = hvae_counterfactual(gpu_m, x_c.to(dev), pa_c.to(dev), cf_c.to(dev),
+                                      noise=iter([t.to(dev) for t in noise]))
+            torch.cuda.synchronize()
+            entry["launches"] = read_counts()
+            cpu = hvae_counterfactual(cpu_m, x_c, pa_c, cf_c, noise=iter(noise))
+            err = (gpu["cf_x"].cpu() - cpu["cf_x"]).abs()
+            rel = rel_errs(gpu, cpu, ("elbo", "nll", "kl"))
+            if dtype == "float32":
+                limit = torch.full_like(err, 1e-4)
+                rtol = 1e-4
+            else:  # the transfer's bound from the CPU run's own decodes
+                limit = e * (1 + 2 * (cpu["cf_scale"] * cpu["u"]).abs()
+                             + cpu["cf_scale"] / cpu["rec_scale"])
+                rtol = 2e-2
+            entry.update({"cf_x_max_abs_err": err.max().item(),
+                          "cf_x_err_over_limit": (err / limit).max().item(), "rel_err": rel})
+            if entry["cf_x_err_over_limit"] > 1 or max(rel.values()) > rtol or \
+                    entry["launches"]["fused_sample_kl"] != 2 * n_sto or \
+                    entry["launches"]["fused_light_block"]:
+                raise AssertionError(f"vol3d32 {dtype} counterfactual card vs CPU: {entry}")
+            # HVAE.sample(return_loc=False, t=0.7) with the draws injected
+            prior = normals(c, CHECK_BS, rng)
+            head = torch.from_numpy(rng.standard_normal(tuple(x_c.shape)).astype(np.float32))
+            sx, ss = gpu_m.sample(pa_c.to(dev), False, 0.7,
+                                  noise=iter([t.to(dev) for t in prior + [head]]))
+            rx, rs = cpu_m.sample(pa_c, False, 0.7, noise=iter(prior + [head]))
+            x_err, s_err = (sx.cpu() - rx).abs(), (ss.cpu() - rs).abs()
+            if dtype == "float32":
+                x_lim, s_lim = torch.full_like(x_err, 1e-4), torch.full_like(s_err, 1e-4)
+            else:  # x = loc + scale eps: loc within e, the scale within e relative
+                x_lim, s_lim = e * (1 + 2 * (rs * head).abs()), e * rs
+            entry["sample_err_over_limit"] = max((x_err / x_lim).max().item(),
+                                                 (s_err / s_lim).max().item())
+            if entry["sample_err_over_limit"] > 1:
+                raise AssertionError(f"vol3d32 {dtype} HVAE.sample card vs CPU: {entry}")
+        batch = {"x": np.round((x_c.permute(0, 2, 3, 4, 1).numpy() + 1) * 127.5).astype(np.uint8),
+                 "pa": pa_c.numpy()}
+        st = step_card_vs_cpu(c, state, batch, normals(c, CHECK_BS, rng),
+                              2e-2 if dtype == "bfloat16" else 1e-4, dtype == "float32")
+        entry["train_step"] = st
+        log("vol3d", f"{dtype} bs {CHECK_BS}: card == CPU plain path (TF32 off, draws injected): "
+                     f"counterfactual do(radius = 0.6) cf_x max abs err "
+                     f"{entry['cf_x_max_abs_err']:.3e} ({entry['cf_x_err_over_limit']:.3f} of "
+                     f"the {'bound' if dtype != 'float32' else '1e-4'}), terms rel "
+                     f"{max(rel.values()):.2e}; sample {entry['sample_err_over_limit']:.3f} of "
+                     f"its limit; train step metrics rel {max(st['rel_err'].values()):.2e}")
+        del gpu_m, cpu_m
+
+    # the main paths at bs 8: counts set to 0 just before each, read just after
+    x, pa, cf_pa = vol3d_obs(cfg, VOL3D_BS, dev)
+    g = torch.Generator().manual_seed(SEED + 134)
+    zero = dict.fromkeys(read_counts(), 0)
+    out["launches"] = {}
+    with torch.inference_mode():
+        for name, fn, want in (
+                ("counterfactual", lambda: hvae_counterfactual(vae, x, pa, cf_pa, generator=g),
+                 dict(zero, fused_sample_kl=2 * n_sto)),
+                ("HVAE.sample", lambda: vae.sample(pa, False, 0.7, generator=g), zero)):
+            reset_counts()
+            r = fn()
+            torch.cuda.synchronize()
+            counts = out["launches"][name] = read_counts()
+            vals = [r["cf_x"], r["elbo"]] if isinstance(r, dict) else list(r)
+            if counts != want or not all(torch.isfinite(t).all() for t in vals):
+                raise AssertionError(f"vol3d32 {name}: launches {counts}, expected {want}")
+    st = init_train_state(cfg, vae)
+    b = to_device({"x": np.round((x.permute(0, 2, 3, 4, 1).cpu().numpy() + 1) * 127.5)
+                   .astype(np.uint8), "pa": pa.cpu().numpy()}, dev)
+    reset_counts()
+    m = train_step(cfg, st, b, generator=g)
+    torch.cuda.synchronize()
+    counts = out["launches"]["train_step"] = read_counts()
+    if counts != expected_counts(cfg, 1) or not math.isfinite(float(m["elbo"])):
+        raise AssertionError(f"vol3d32 train step: launches {counts}, expected "
+                             f"{expected_counts(cfg, 1)}; {m}")
+    log("vol3d", f"main paths bf16 bs {VOL3D_BS}: " + "; ".join(
+        f"{k} {v['fused_sample_kl']} K1 + {v['fused_sample_kl_bwd']} K1-bwd, K2 "
+        f"{v['fused_light_block']}" for k, v in out["launches"].items()))
+
+    with torch.inference_mode():
+        for _ in range(3):
+            hvae_counterfactual(vae, x, pa, cf_pa, generator=g)
+        times = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hvae_counterfactual(vae, x, pa, cf_pa, generator=g)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["profile_counterfactual"] = profile_calls(
+            lambda: hvae_counterfactual(vae, x, pa, cf_pa, generator=g), 3, "counterfactual")
+    for _ in range(2):
+        train_step(cfg, st, b, generator=g)
+    step_times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(cfg, st, b, generator=g)
+        torch.cuda.synchronize()
+        step_times.append((time.perf_counter() - t0) * 1e3)
+    out["profile_step"] = profile_calls(lambda: train_step(cfg, st, b, generator=g), 3, "step")
+    cf_ms, step_ms = statistics.median(times), statistics.median(step_times)
+    out.update({"counterfactual_ms": cf_ms, "counterfactual_ms_all": times,
+                "cf_per_s": VOL3D_BS / cf_ms * 1e3, "step_ms": step_ms,
+                "step_ms_all": step_times, "volumes_per_s": VOL3D_BS / step_ms * 1e3,
+                **k1_bounds(cfg, VOL3D_BS, 2)})
+    log("vol3d", f"vol3d32 bf16 bs {VOL3D_BS}: counterfactual median {cf_ms:.3f} ms over 20 (min "
+                 f"{min(times):.3f}, max {max(times):.3f}) = {VOL3D_BS / cf_ms * 1e3:.1f} cf/s; "
+                 f"train step median {step_ms:.3f} ms over 10 (min {min(step_times):.3f}, max "
+                 f"{max(step_times):.3f}) = {VOL3D_BS / step_ms * 1e3:.1f} volumes/s; bounds: K1 "
+                 f"{out['k1_bound_ms_per_call']:.4f} ms a counterfactual, K1 + K1-bwd "
+                 f"{out['k1_bound_ms_per_step']:.4f} + {out['k1_bwd_bound_ms_per_step']:.4f} ms "
+                 f"a step")
     reset_counts()
     return out
 
@@ -2400,11 +2888,15 @@ def main() -> int:
     uk_train = phase_ukbb_train()
     uk64 = phase_ukbb64()
     mim = phase_mimic()
+    cp = phase_cond_prior()
+    vol = phase_vol3d()
     turns = phase_turns(os.path.abspath(args.parent)) if args.parent else None
     # launches on the main paths, each counted from 0: DSCM.forward (the
     # Morpho-MNIST, ukbb192, ukbb64 and mimic192 serving slices),
     # HVAE.sample on the DMoL head and on ukbb192, train() through cli.main
-    # on each configuration and the ukbb192 train step
+    # on each configuration and the ukbb192 train step; the cond_prior and
+    # q_correction forwards, mixture abduction and train steps; vol3d32's
+    # counterfactual, sample and train step
     by_path = {"DSCM.forward morphomnist": {"fused_sample_kl": sl["launches"]},
                "HVAE.sample cmnist diag_dmol": samp["launches"]}
     by_path.update({f"cli.main train {n}": e["launches"] for n, e in entry.items()})
@@ -2413,6 +2905,9 @@ def main() -> int:
                     "train_step ukbb192 bf16": uk_train["launches"],
                     "DSCM.forward ukbb64 float32": uk64["launches"],
                     "DSCM.forward mimic192 bf16": mim["launches"]})
+    by_path.update({f"{path} morphomnist {v}": c for v in VARIANTS
+                    for path, c in cp[v]["launches"].items()})
+    by_path.update({f"{path} vol3d32 bf16": c for path, c in vol["launches"].items()})
 
     # K2's float32 kernel also runs in the float32 card-vs-CPU checks, each
     # counted from 0; those launches are listed apart
@@ -2433,15 +2928,19 @@ def main() -> int:
     kernels = [
         row("fused_sample_kl", "causal_gen_tpu_torch/csrc/sample_kl.cu",
             "causal_gen_tpu/ops/pallas_kernels.py:109",
-            "phase K1 (injected eps at every slice shape + ragged; Philox statistics) and "
-            "phase mimic (injected eps at the mimic192 path's shapes)",
-            dict(k1, max_abs_err=max(k1["max_abs_err"], mim["k1_max_abs_err"])),
+            "phase K1 (injected eps at every slice shape + ragged; Philox statistics), "
+            "phase mimic (injected eps at the mimic192 path's shapes) and phase vol3d "
+            "(injected eps at vol3d32's (8,8,r,r,r))",
+            dict(k1, max_abs_err=max(k1["max_abs_err"], mim["k1_max_abs_err"],
+                                     vol["k1_max_abs_err"])),
             ms_inputs_in_l2=k1["ms_l2"], ms_philox=k1["ms_philox"],
             bound_ms_philox=k1["bound_ms_philox"]),
         row("fused_sample_kl_bwd", "causal_gen_tpu_torch/csrc/sample_kl.cu",
             "causal_gen_tpu/ops/pallas_kernels.py:136",
             "phase K1-bwd (autograd of the plain version, injected eps and Philox, every "
-            "slice shape + ragged)", k1b),
+            "slice shape + ragged) and phase vol3d (the same at vol3d32's (8,8,r,r,r), the "
+            "KL's cotangent stride 0 over (D,H,W))",
+            dict(k1b, max_abs_err=max(k1b["max_abs_err"], vol["k1_bwd_max_abs_err"]))),
         row("dmol_loss", "causal_gen_tpu_torch/csrc/dmol_loss.cu",
             "causal_gen_tpu/ops/pallas_kernels.py:230",
             "phase K3 (plain op at (32,100,32,32) and a ragged size with edge and switch "
@@ -2480,7 +2979,8 @@ def main() -> int:
     record = {"device": name, "nvidia_smi": smi, "build_s": build_s, "k1": k1, "k1_bwd": k1b,
               "k3": k3, "k4": k4, "k2": k2, "slice": sl, "sample": samp, "train": train,
               "entry": entry, "ukbb": uk, "ukbb_sample": uk_samp, "ukbb_train": uk_train,
-              "ukbb64": uk64, "mimic": mim, "turns": turns, "kernels": kernels,
+              "ukbb64": uk64, "mimic": mim, "cond_prior": cp, "vol3d": vol, "turns": turns,
+              "kernels": kernels,
               "total_s": time.perf_counter() - t_start}
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)

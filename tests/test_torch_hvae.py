@@ -180,7 +180,11 @@ def test_abduct_and_forward_latents_at_a_temperature_match_jax(monkeypatch):
     np.testing.assert_allclose(nhwc(scale), np.asarray(jscale), atol=1e-5)
 
 
-def test_unported_config_features_raise():
-    for kw in (dict(cond_prior=True), dict(q_correction=True), dict(spatial_dims=3)):
-        with pytest.raises(NotImplementedError):
-            HVAE(small_morpho_cfg(False, **kw), device="cpu")
+@pytest.mark.parametrize("kw", [
+    dict(x_like="diag_dmol", spatial_dims=3),  # the DMoL head is 2-D only, as in JAX
+    dict(vae="simple"),  # SimpleVAE is not ported yet
+    dict(x_like="diag_gauss"),  # nor its GaussNet head
+], ids=["dmol_3d", "simple_vae", "gauss_head"])
+def test_unported_config_features_raise(kw):
+    with pytest.raises(NotImplementedError):
+        HVAE(small_morpho_cfg(False, **kw), device="cpu")

@@ -57,6 +57,15 @@ def test_the_mimic_slice_modules_are_checked():
     assert "chip_smoke.py" in checked
 
 
+@pytest.mark.parametrize("rel", ["models/blocks.py", "models/hvae.py", "models/likelihoods.py",
+                                 "ops/sample_kl.py", "pgm/dscm.py", "convert.py",
+                                 "train/vae_trainer.py", "data/datasets.py", "cli/main.py"])
+def test_the_variant_slice_modules_are_checked(rel):
+    """Each module the cond_prior, q_correction and 3-D slice adds to or
+    changes is among those held to the rules above."""
+    assert f"causal_gen_tpu_torch/{rel}" in {str(p.relative_to(ROOT)) for p in _port_sources()}
+
+
 def test_every_module_imports_without_jax():
     """Import every module of the package in a fresh interpreter that refuses
     JAX and the JAX package."""

@@ -214,3 +214,25 @@ def test_cpu_bwd_wrapper_and_autograd():
     zero = torch.zeros(())
     for g, r in zip(only_kl, fused_sample_kl_bwd_ref(*detached, z.detach(), zero, gkl)):
         assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 4, 5), (2, 3, 4, 5, 6), (2, 3, 1, 1, 1)])
+def test_per_row_reads_a_kl_cotangent_summed_over_space(shape):
+    """The KL is summed over every spatial axis (two for images, three for
+    volumes), so autograd hands K1-bwd a cotangent that is a stride-0
+    broadcast over those axes: ``_per_row`` gives its (B, C) values and the
+    repeat; a materialised map comes back as it is, repeat 1."""
+    from causal_gen_tpu_torch.ops.sample_kl import _per_row
+
+    kl = torch.zeros(shape, requires_grad=True)
+    v = torch.randn(shape[:2], generator=torch.Generator().manual_seed(0))
+    (g,) = torch.autograd.grad((kl.sum(dim=tuple(range(2, len(shape)))) * v).sum(), kl)
+    vals, rep = _per_row(g)
+    n = int(np.prod(shape[2:]))
+    if n > 1:
+        assert g.stride()[2:] == (0,) * (len(shape) - 2)
+        assert rep == n and torch.equal(vals, v)
+    assert torch.equal(vals.repeat_interleave(rep, dim=1).reshape(shape), g)
+    dense = g.contiguous()
+    vals_d, rep_d = _per_row(dense)
+    assert rep_d == 1 and torch.equal(vals_d, dense)

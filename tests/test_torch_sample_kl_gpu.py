@@ -33,8 +33,13 @@ def cuda():
     return torch.device("cuda")
 
 
+# vol3d32's posterior shapes (B, z, r, r, r): the 1^3 volume, a middle one and
+# the largest, 2.1M elements
+VOL3D = [(8, 8, 1, 1, 1), (8, 8, 8, 8, 8), (8, 8, 32, 32, 32)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(32, 16, 32, 32), (1000003,)])
+@pytest.mark.parametrize("shape", [(32, 16, 32, 32), (1000003,)] + VOL3D)
 def test_kernel_matches_plain_version(cuda, shape):
     args = [torch.from_numpy(a).to(cuda) for a in _inputs(shape, seed=3)]
     eps = torch.randn(shape, generator=torch.Generator().manual_seed(0)).to(cuda)
@@ -86,11 +91,12 @@ def _grads(fn, args, eps, w, v):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(32, 16, 32, 32), (32, 16, 1, 1), (1000003,)])
+@pytest.mark.parametrize("shape", [(32, 16, 32, 32), (32, 16, 1, 1), (1000003,)] + VOL3D)
 @pytest.mark.parametrize("philox", [False, True])
 def test_backward_matches_autograd_of_plain_version(cuda, shape, philox):
     """The backward kernel against autograd through fused_sample_kl_ref given
-    the same eps (recovered from z on the Philox path): 1e-5 (1 + |ref|)."""
+    the same eps (recovered from z on the Philox path): 1e-5 (1 + |ref|). On
+    a volume the KL's cotangent is a stride-0 broadcast over (D, H, W)."""
     args = [torch.from_numpy(a).to(cuda) for a in _inputs(shape, seed=4)]
     g = torch.Generator().manual_seed(1)
     w = torch.randn(shape, generator=g).to(cuda)
@@ -108,3 +114,24 @@ def test_backward_matches_autograd_of_plain_version(cuda, shape, philox):
     for got, ref in zip(kernel, plain):
         assert torch.all((got - ref).abs() <= 1e-5 * (1 + ref.abs())), \
             (got - ref).abs().max().item()
+
+
+@pytest.mark.gpu
+def test_backward_reads_a_volume_cotangent_per_row(cuda):
+    """The KL summed over (D, H, W), as the 3-D HVAE sums it, gives the
+    backward a cotangent of strides (C, 1, 0, 0, 0): the kernel reads its
+    (B, C) values (``_per_row``) and agrees with the materialised map."""
+    from causal_gen_tpu_torch.ops.sample_kl import _per_row
+
+    shape = VOL3D[-1]
+    args = [torch.from_numpy(a).to(cuda) for a in _inputs(shape, seed=7)]
+    z, _ = fused_sample_kl(*args, eps=torch.zeros(shape, device=cuda))
+    v = torch.randn(shape[:2], generator=torch.Generator().manual_seed(2)).to(cuda)
+    gkl = v[:, :, None, None, None].expand(shape)
+    vals, rep = _per_row(gkl)
+    assert rep == 32 ** 3 and torch.equal(vals, v)
+    got = fused_sample_kl_bwd(*args, z, None, gkl)
+    ref = fused_sample_kl_bwd(*args, z, None, gkl.contiguous())
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)

@@ -51,13 +51,14 @@ def load_jax_params(module: torch.nn.Module, tree: Any, allow_missing: str = Non
 
 
 def nchw(a) -> torch.Tensor:
-    """NHWC array -> NCHW float32 tensor."""
-    return torch.tensor(np.asarray(a, np.float32).transpose(0, 3, 1, 2))
+    """N(D)HWC array -> NC(D)HW float32 tensor."""
+    a = np.asarray(a, np.float32)
+    return torch.tensor(a.transpose(0, a.ndim - 1, *range(1, a.ndim - 1)))
 
 
 def nhwc(t: torch.Tensor) -> np.ndarray:
-    """NCHW tensor -> NHWC numpy array."""
-    return t.detach().cpu().numpy().transpose(0, 2, 3, 1)
+    """NC(D)HW tensor -> N(D)HWC numpy array."""
+    return t.detach().cpu().numpy().transpose(0, *range(2, t.dim()), 1)
 
 
 def small_morpho_cfg(jax_side: bool, res: int = 16, **overrides):
@@ -118,40 +119,92 @@ def torch_batch(b: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return {k: nchw(v) if k == "x" else torch.from_numpy(v) for k, v in b.items()}
 
 
+class DropOption:
+    """Replacement for ``jax.random.randint`` in the JAX decoder's
+    conditioning dropout (``_drop_cond``): every draw is ``self.option``,
+    read through a host callback when the program runs, so one compiled step
+    takes a new option each call."""
+
+    def __init__(self, option: int = 0):
+        self.option = option
+
+    def __call__(self, key, shape, minval, maxval, *a, **k):
+        return jax.pure_callback(lambda: np.full(shape, self.option, np.int32),
+                                 jax.ShapeDtypeStruct(shape, jnp.int32))
+
+
+def patch_jax_drop_option(monkeypatch, option: int = 0) -> DropOption:
+    drop = DropOption(option)
+    monkeypatch.setattr(jax.random, "randint", drop)
+    return drop
+
+
+def random_jax_params(jvae, cfg, seed: int = 0):
+    """A parameter tree for the JAX HVAE ``jvae`` of ``cfg`` without running
+    its init: the shapes from ``jax.eval_shape`` of the init (seconds, where
+    compiling the init takes tens), each leaf drawn from a seeded numpy
+    stream: a kernel N(0, 1 / fan_in), every other leaf 0.05 N(0, 1). No
+    leaf is zero, so every path, the parents' way into a conditional prior
+    included, carries signal."""
+    x = jnp.zeros((1,) + (cfg.input_res,) * cfg.spatial_dims + (cfg.input_channels,))
+    pa = jnp.zeros((1, cfg.context_dim))
+    shapes = jax.eval_shape(lambda k: jvae.init({"params": k, "sample": k}, x, pa,
+                                                beta=cfg.beta, train=False)["params"],
+                            jax.random.PRNGKey(0))
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, s):
+        std = (1.0 / np.sqrt(np.prod(s.shape[:-1])) if path[-1].key.endswith("kernel")
+               else 0.05)
+        return jnp.asarray((std * rng.standard_normal(s.shape)).astype(np.float32))
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
 def run_steps_against_jax(jcfg, tcfg, channels, context_dim, monkeypatch, n_steps=4,
-                          nan_step=2):
+                          nan_step=2, options=None, params=None):
     """``n_steps`` train steps of both packages from converted parameters, on
     the same uint8 batches (accu_steps microbatches each) and noise. Step
     ``nan_step`` has a NaN parent, so both skip it. Returns the per-step
-    metrics of both and the two final states.
+    metrics of both and the two final states. ``options[s]`` forces a
+    ``cond_prior`` model's dropout option of step s on both sides (the port
+    takes it first in each microbatch's draws); ``params`` replaces the
+    initial parameters.
 
     The JAX step is jitted: its patched sample_gaussian draws once, at trace
     time, and the compiled step reuses those draws for every microbatch and
     every step, so the port is fed the same draws each time."""
     jvae = JHVAE(cfg=jcfg)
-    params = init_model_params(jcfg, jvae, jax.random.PRNGKey(0))
+    if params is None:
+        params = init_model_params(jcfg, jvae, jax.random.PRNGKey(0))
     jstate = jinit_state(jcfg, params)
     tvae = HVAE(tcfg, device="cpu")
     load_jax_params(tvae, params)
     tstate = init_train_state(tcfg, tvae)
     rec = patch_jax_noise(monkeypatch, seed=5)
+    drop = None if options is None else patch_jax_drop_option(monkeypatch)
     jstep = jax.jit(_make_step_body(jcfg, jvae))
     n_stochastic = sum(1 for r, _ in plan_decoder_blocks(tcfg) if r <= tcfg.z_max_res)
     accu, res = jcfg.accu_steps, jcfg.input_res
     micro = jcfg.bs // accu
+    space = (res,) * jcfg.spatial_dims
     rng = np.random.default_rng(0)
     metrics = []
     for s in range(n_steps):
-        x = rng.integers(0, 256, (accu, micro, res, res, channels)).astype(np.uint8)
+        x = rng.integers(0, 256, (accu, micro) + space + (channels,)).astype(np.uint8)
         pa = rng.uniform(-1, 1, (accu, micro, context_dim)).astype(np.float32)
         if s == nan_step:
             pa[0, 0, 0] = np.nan
+        head = []
+        if drop is not None:
+            drop.option = options[s]
+            head = [torch.tensor(options[s])]
         jstate, jm = jstep(jstate, {"x": jnp.asarray(x), "pa": jnp.asarray(pa)},
                            jax.random.PRNGKey(s))
         assert len(rec.draws) == n_stochastic  # one trace, one draw per stochastic block
-        noise = [rec.torch_noise() for _ in range(accu)]
-        batch = {"x": torch.from_numpy(x.reshape(accu * micro, res, res, channels))
-                 .permute(0, 3, 1, 2).contiguous(),
+        noise = [head + rec.torch_noise() for _ in range(accu)]
+        batch = {"x": torch.from_numpy(x.reshape((accu * micro,) + space + (channels,)))
+                 .permute(0, len(space) + 1, *range(1, len(space) + 1)).contiguous(),
                  "pa": torch.from_numpy(pa.reshape(accu * micro, context_dim))}
         tm = train_step(tcfg, tstate, batch, noise=noise)
         metrics.append(({k: float(v) for k, v in jax.device_get(jm).items()},
