@@ -10,7 +10,11 @@ Counterpart of ``causal_gen_tpu/cli/main.py`` (reference src/main.py), with
 
 ``--cond_prior`` (with the registry's ``cond_drop_from``) and
 ``--q_correction`` reach the HVAE; ``--hps vol3d32`` trains the 3-D HVAE on
-the generated sphere volumes.
+the generated sphere volumes; ``--vae simple`` trains the single-latent
+``SimpleVAE`` instead (with ``--x_like diag_gauss``, its logit-Normal head):
+
+    python -m causal_gen_tpu_torch.cli.main --hps morphomnist --vae simple \
+        --x_like diag_gauss --data_dir DIR --epochs 10
 
 Fields of the JAX CLI that only steer the JAX programs (``--use_pallas``,
 ``--stage_scan``, ``--remat``, ``--steps_per_call``, ...) are accepted and go
@@ -30,14 +34,15 @@ from causal_gen_tpu_torch import resolve_device
 from causal_gen_tpu_torch.config import get_config
 from causal_gen_tpu_torch.data.datasets import setup_datasets
 from causal_gen_tpu_torch.data.loader import setup_loaders
-from causal_gen_tpu_torch.models.hvae import HVAE
+from causal_gen_tpu_torch.models.simple_vae import build_vae
 from causal_gen_tpu_torch.train.checkpoint import load_checkpoint, restore_train_state
 from causal_gen_tpu_torch.train.experiment import MetricWriter, setup_directories, setup_logging
 from causal_gen_tpu_torch.train.vae_trainer import train
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="Train the image mechanism (HVAE) with PyTorch.")
+    p = argparse.ArgumentParser(description="Train the image mechanism (HVAE or SimpleVAE) "
+                                            "with PyTorch.")
     p.add_argument("--hps", default="morphomnist", help="config registry name")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--exp_name", default="")
@@ -108,9 +113,6 @@ def main(argv: Optional[list] = None, datasets: Optional[Dict] = None) -> Tuple:
         cfg = cfg.replace(**{k: v for k, v in overrides.items() if k in _RESUME_OVERRIDES})
     else:
         cfg = get_config(args.hps, **overrides)
-    if cfg.vae != "hierarchical":
-        raise NotImplementedError("the port trains the hierarchical VAE only so far")
-
     save_dir = args.save_dir or os.path.join("checkpoints", cfg.name, args.exp_name or "default")
     setup_directories(save_dir)
     logger = setup_logging(save_dir)
@@ -121,7 +123,7 @@ def main(argv: Optional[list] = None, datasets: Optional[Dict] = None) -> Tuple:
 
     datasets = datasets if datasets is not None else setup_datasets(cfg)
     loaders = setup_loaders(datasets, cfg.bs, seed=cfg.seed, max_batches=args.max_batches)
-    model = HVAE(cfg, device=device, generator=torch.Generator().manual_seed(cfg.seed))
+    model = build_vae(cfg, device=device, generator=torch.Generator().manual_seed(cfg.seed))
     init_state = None if payload is None else restore_train_state(cfg, model, payload)
     try:
         state, history = train(cfg, model, loaders, save_dir=save_dir,

@@ -143,38 +143,50 @@ def dscm_state_dicts(vae_tree: Mapping[str, Any], pgm_tree: Mapping[str, Any],
 # the PGM checkpoint config's fields each PGM_REGISTRY class is built from
 # (causal_gen_tpu/cli/train_cf.py::build_pgm_from_ckpt passes the fields its
 # flax class has): ChestPGM's nets have fixed widths, so a mimic config's
-# ``widths`` is not read
+# ``widths`` is not read, and ColourMNISTPGM has no SCM net and predictors on
+# RGB whatever ``input_channels`` says (the JAX CNN takes its input's channels)
 PGM_FIELDS = {
     "ukbb": ("widths", "std_fixed", "input_res", "input_channels"),
     "morphomnist": ("widths", "std_fixed", "input_res", "input_channels"),
+    "cmnist": ("std_fixed", "input_res"),
     "mimic": ("std_fixed", "input_res", "input_channels"),
 }
 
 
 def build_pgm(pgm_cfg: Mapping[str, Any], setup_predictors: bool,
-              device: "str | torch.device" = "cuda") -> torch.nn.Module:
-    """The port's PGM for a PGM checkpoint's config (its ``dataset`` and the
-    fields ``PGM_FIELDS`` names), as the PGM (``setup_predictors=False``) or
-    the predictor (causal_gen_tpu/cli/train_cf.py::build_pgm_from_ckpt)."""
+              device: "str | torch.device" = "cuda",
+              generator: "torch.Generator | None" = None) -> torch.nn.Module:
+    """The port's PGM for a PGM config (a checkpoint's, or
+    ``pgm/train_pgm.py::PGMConfig`` as a dict: its ``dataset``, its
+    ``setup`` and the fields ``PGM_FIELDS`` names), as the PGM
+    (``setup_predictors=False``) or the predictor
+    (causal_gen_tpu/cli/train_cf.py::build_pgm_from_ckpt). A ``semi_sup``
+    config's module holds both the SCM's nets and the predictors, as its
+    checkpoint does, in either role."""
     from causal_gen_tpu_torch.pgm.flow_pgm import PGM_REGISTRY
 
+    semi = pgm_cfg.get("setup") == "semi_sup"
     for prefix, cls in PGM_REGISTRY.items():
         if pgm_cfg["dataset"].startswith(prefix):
             kw = {k: tuple(pgm_cfg[k]) if k == "widths" else pgm_cfg[k]
                   for k in PGM_FIELDS[prefix]}
-            return cls(**kw, setup_predictors=setup_predictors, device=device)
+            if semi and prefix in ("ukbb", "mimic"):
+                kw["scm_nets"] = True
+            return cls(**kw, setup_predictors=setup_predictors or semi, device=device,
+                       generator=generator)
     raise KeyError(f"no PGM for dataset {pgm_cfg['dataset']!r}")
 
 
 def build_dscm(vae_cfg: Config, pgm_cfg: Mapping[str, Any], aux_cfg: Mapping[str, Any],
                state_dicts: Tuple[Dict[str, torch.Tensor], ...],
                device: "str | torch.device" = "cuda", elbo_constraint: float = 0.0):
-    """A ``DSCM`` on ``device`` whose HVAE, PGM and predictor load
+    """A ``DSCM`` on ``device`` whose image mechanism (``vae_cfg.vae``: the
+    HVAE or the simple VAE), PGM and predictor load
     ``state_dicts`` (``dscm_state_dicts``) with ``strict=True``."""
-    from causal_gen_tpu_torch.models.hvae import HVAE
+    from causal_gen_tpu_torch.models.simple_vae import build_vae
     from causal_gen_tpu_torch.pgm.dscm import DSCM
 
-    mods = (HVAE(vae_cfg, device=device), build_pgm(pgm_cfg, False, device),
+    mods = (build_vae(vae_cfg, device=device), build_pgm(pgm_cfg, False, device),
             build_pgm(aux_cfg, True, device))
     for mod, sd in zip(mods, state_dicts):
         mod.load_state_dict(sd, strict=True)

@@ -58,8 +58,11 @@ class ArrayDataset:
                 for k in self.columns]
         return np.concatenate(cols, axis=1).astype(np.float32)
 
-    def batch(self, idx: np.ndarray, rng: Optional[np.random.Generator] = None
-              ) -> Dict[str, np.ndarray]:
+    def batch(self, idx: np.ndarray, rng: Optional[np.random.Generator] = None,
+              concat_pa: bool = True) -> Dict[str, np.ndarray]:
+        """{"x", "pa"}, or with ``concat_pa=False`` {"x", <each column>}: the
+        parents one by one, (B, 1) or (B, K) float32, as the PGM trainer
+        reads them (causal_gen_tpu/data/datasets.py:96-103)."""
         rng = rng if rng is not None else np.random.default_rng(0)
         if self.aug is not None and self.aug[0] == "random_crop_flip":
             _, size, padding, hflip_p = self.aug
@@ -68,7 +71,13 @@ class ArrayDataset:
             x = augment.center_pad(self.images[idx], self.aug[1])
         else:
             x = self.images[idx]
-        return {"x": x, "pa": self.pa[idx]}
+        if concat_pa:
+            return {"x": x, "pa": self.pa[idx]}
+        out = {"x": x}
+        for k in self.columns:
+            v = self.attrs[k][idx]
+            out[k] = (v[:, None] if v.ndim == 1 else v).astype(np.float32)
+        return out
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,8 @@ its workers, reference train_setup.py:16-39): a shuffled index permutation per
 epoch and whole-batch numpy augmentation, deterministic given ``seed`` (one
 ``np.random.Generator`` per loader, advanced per epoch), so that a seed gives
 the JAX package's batches. Batches stay numpy; the trainer moves them to the
-device.
+device. With ``concat_pa=False`` a batch holds each parent under its own
+name instead of the concatenated ``pa`` (the PGM trainer's batches).
 """
 
 from __future__ import annotations
@@ -21,8 +22,10 @@ from causal_gen_tpu_torch.data.datasets import ArrayDataset
 
 class Loader:
     def __init__(self, dataset: ArrayDataset, batch_size: int, shuffle: bool = True,
-                 drop_last: bool = True, seed: int = 0, max_batches: Optional[int] = None):
+                 drop_last: bool = True, seed: int = 0, max_batches: Optional[int] = None,
+                 concat_pa: bool = True):
         self.ds = dataset
+        self.concat_pa = concat_pa
         self.bs = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
@@ -41,7 +44,7 @@ class Loader:
         for k, i in enumerate(range(0, stop, self.bs)):
             if self.max_batches is not None and k >= self.max_batches:
                 return
-            yield self.ds.batch(order[i: i + self.bs], rng=self._rng)
+            yield self.ds.batch(order[i: i + self.bs], rng=self._rng, concat_pa=self.concat_pa)
 
 
 class PrefetchLoader:
@@ -95,11 +98,11 @@ class PrefetchLoader:
 
 
 def setup_loaders(datasets: Dict[str, ArrayDataset], batch_size: int, seed: int = 0,
-                  max_batches: Optional[int] = None, prefetch: bool = True
-                  ) -> Dict[str, object]:
+                  max_batches: Optional[int] = None, prefetch: bool = True,
+                  concat_pa: bool = True) -> Dict[str, object]:
     def build(split, ds, i):
         loader = Loader(ds, batch_size, shuffle=(split == "train"), drop_last=(split == "train"),
-                        seed=seed + i, max_batches=max_batches)
+                        seed=seed + i, max_batches=max_batches, concat_pa=concat_pa)
         return PrefetchLoader(loader) if prefetch and split == "train" else loader
 
     return {split: build(split, ds, i) for i, (split, ds) in enumerate(datasets.items())}

@@ -292,7 +292,11 @@ class HVAE(nn.Module):
         if cfg.dtype not in ("float32", "bfloat16"):
             raise ValueError(f"HVAE: dtype {cfg.dtype!r} is neither float32 nor bfloat16")
         if cfg.vae != "hierarchical":
-            raise NotImplementedError(f"HVAE port: vae={cfg.vae!r} (the simple VAE) not ported yet")
+            raise NotImplementedError(f"HVAE: vae={cfg.vae!r} is models/simple_vae.py::SimpleVAE")
+        if cfg.x_like.endswith("_gauss"):
+            # the reference HVAE has no logit-Normal head and no config pairs
+            # them; its dequantisation draws would not reach ``noise``
+            raise NotImplementedError(f"HVAE: x_like={cfg.x_like!r} is SimpleVAE's head only")
         self.cfg = cfg
         self.cond_prior = cfg.cond_prior
         self.encoder = Encoder(cfg.enc_stages, cfg.model_widths, cfg.bottleneck,

@@ -122,3 +122,32 @@ def sample_bernoulli(logits: Tensor, shape=None, generator: Optional[torch.Gener
     if u is None:
         u = draw(torch.rand, shape, generator, logits.device)
     return (u < p).to(torch.float32)
+
+
+def gumbel_logpdf(x: Tensor, loc: Tensor, scale: Tensor) -> Tensor:
+    z = (x - loc) / scale
+    return -(z + torch.exp(-z)) - torch.log(scale)
+
+
+def sample_gumbel(shape, generator: Optional[torch.Generator] = None,
+                  device: "str | torch.device" = "cpu", loc=0.0, scale=1.0) -> Tensor:
+    """loc + scale * g, g = -log(-log u) a standard Gumbel, u uniform on
+    [tiny, 1), as ``jax.random.gumbel`` draws it."""
+    u = draw(torch.rand, shape, generator, torch.device(device))
+    g = -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(torch.float32).tiny)))
+    return loc + scale * g
+
+
+def sample_onehot_categorical(logits: Tensor, shape_prefix=(),
+                              generator: Optional[torch.Generator] = None,
+                              gumbel: Optional[Tensor] = None) -> Tensor:
+    """One-hot draw from Categorical(``logits``), which broadcast against
+    ``shape_prefix``: argmax(logits + g) over the classes, as
+    ``jax.random.categorical`` draws, with ``gumbel`` the standard-Gumbel g
+    (drawn from ``generator`` when not given)."""
+    k = logits.shape[-1]
+    shape = tuple(shape_prefix) + (k,) if shape_prefix else tuple(logits.shape)
+    if gumbel is None:
+        gumbel = sample_gumbel(shape, generator, logits.device)
+    idx = torch.argmax(gumbel + logits, dim=-1)
+    return F.one_hot(idx, k).to(torch.float32)

@@ -14,8 +14,13 @@ module does. Semantics kept from the JAX package:
 - Lagrangian loss = aux - (lmbda - damping * sg(eps - elbo)) * (eps - elbo)
   (dscm.py:85-88), with sg a detach.
 
-The soft-morphometry penalty (ops/soft_morph.py) and the dense-intervention
-path come with the counterfactual-training slice.
+- with ``do_mask`` the PGM step is ``counterfactual_dense``: each row takes
+  its own intervention pattern in one pass (dscm.py:122-177).
+
+The soft-morphometry penalty (ops/soft_morph.py) comes with the
+counterfactual-training slice. The image mechanism is an ``HVAE`` or a
+``SimpleVAE``: both have the mechanism API (forward, abduct,
+forward_latents).
 """
 
 from __future__ import annotations
@@ -86,11 +91,15 @@ class DSCM:
         generator: Optional[torch.Generator] = None,
         noise: Optional[Iterable[Tensor]] = None,
         t_abduct: Optional[float] = None,
+        do_mask: Optional[Dict[str, Tensor]] = None,
     ) -> Dict[str, Any]:
         """Counterfactuals of ``obs`` (``x`` NC(D)HW in [-1, 1] plus the parents)
         under intervention ``do``, with the factual ELBO and the losses.
         ``t_abduct`` is the temperature of the abduction only; the decodes
-        run at t = None (causal_gen_tpu/pgm/dscm.py:121,151-159).
+        run at t = None (causal_gen_tpu/pgm/dscm.py:121,151-159). With
+        ``do_mask`` ({name: (B, 1) of 0/1}), ``do`` holds (B, d) values of the
+        masked variables and row i is intervened on where its mask is 1
+        (``counterfactual_dense``).
 
         Random draws: ``noise`` yields the draws in order (the factual pass's
         posterior normals, then for each particle the PGM's Gumbel-Max
@@ -111,7 +120,11 @@ class DSCM:
         cf_sq = torch.zeros_like(x)
         cf_pa: Dict[str, Tensor] = {}
         for _ in range(cf_particles):
-            cf_pa = self.pgm.counterfactual(pa, do, generator=generator, noise=noise)
+            if do_mask is not None:
+                cf_pa = self.pgm.counterfactual_dense(pa, do, do_mask, generator=generator,
+                                                      noise=noise)
+            else:
+                cf_pa = self.pgm.counterfactual(pa, do, generator=generator, noise=noise)
             _cf_pa = vae_preprocess(cfg, cf_pa)
             zs = self.vae.abduct(x, _pa, noise=noise, generator=generator, t=t_abduct)
             # cond_prior abduction returns {z, q_loc, q_logscale} dicts

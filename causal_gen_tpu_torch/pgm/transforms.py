@@ -3,8 +3,10 @@
 Counterpart of ``causal_gen_tpu/pgm/transforms.py``: ``Affine``, ``Sigmoid``,
 ``Compose``, the linear rational spline (Dolatabadi et al. 2020, Pyro's
 ``Spline(order="linear")``) with its analytic inverse, and
-``normalize_neg11``. A transform has ``forward(x) -> (y, logdet)`` and
-``inverse(y) -> (x, logdet)`` with an elementwise logdet.
+``normalize_neg11`` and ``SoftmaxCentered``. A transform has
+``forward(x) -> (y, logdet)`` and ``inverse(y) -> (x, logdet)``; the logdet is
+elementwise but for ``SoftmaxCentered``'s, which is one per event (the last
+dim reduced).
 """
 
 from __future__ import annotations
@@ -65,23 +67,58 @@ class Sigmoid(Transform):
 
 @dataclass
 class Compose(Transform):
-    """Transform chain with elementwise logdets summed."""
+    """Transform chain. Where a part's logdet is per event (one dim fewer,
+    ``SoftmaxCentered``), the running elementwise logdet is summed over the
+    event first (causal_gen_tpu/pgm/transforms.py:86-108)."""
 
     parts: Sequence[Transform]
 
+    @staticmethod
+    def _accumulate(ld, d):
+        if ld is None:
+            return d
+        if d.dim() == ld.dim():
+            return ld + d
+        if d.dim() < ld.dim():
+            return torch.sum(ld, dim=-1) + d
+        return ld + torch.sum(d, dim=-1)
+
     def forward(self, x):
-        ld = 0.0
+        ld = None
         for t in self.parts:
             x, d = t.forward(x)
-            ld = ld + d
+            ld = self._accumulate(ld, d)
         return x, ld
 
     def inverse(self, y):
-        ld = 0.0
+        ld = None
         for t in reversed(list(self.parts)):
             y, d = t.inverse(y)
-            ld = ld + d
+            ld = self._accumulate(ld, d)
         return y, ld
+
+
+@dataclass
+class SoftmaxCentered(Transform):
+    """Softmax as a bijection R^K -> the interior of the (K+1)-simplex:
+    forward appends a zero pivot and softmaxes at ``temperature``; inverse
+    takes log-ratios against the last coordinate
+    (causal_gen_tpu/pgm/transforms.py:120-150, reference
+    notebooks/discrete_mechanisms.ipynb). Its logdet is per event:
+    log|det dy/dx| = 0.5 log(K+1) + sum(log y), with y floored at 1e-12."""
+
+    temperature: float = 1.0
+
+    def forward(self, x):
+        zero = torch.zeros((*x.shape[:-1], 1), dtype=x.dtype, device=x.device)
+        y = torch.softmax(torch.cat([x, zero], dim=-1) / self.temperature, dim=-1)
+        ld = 0.5 * math.log(y.shape[-1]) + torch.sum(torch.log(torch.clamp(y, min=1e-12)), -1)
+        return y, ld
+
+    def inverse(self, y):
+        log_y = torch.log(torch.clamp(y, min=1e-12))
+        x = (log_y[..., :-1] - log_y[..., -1:]) * self.temperature
+        return x, -(0.5 * math.log(y.shape[-1]) + torch.sum(log_y, dim=-1))
 
 
 def normalize_neg11() -> Compose:

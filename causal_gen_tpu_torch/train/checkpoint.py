@@ -37,7 +37,7 @@ def state_payload(state: TrainState) -> Dict[str, Any]:
     }
 
 
-def _write(path: str, payload: Dict[str, Any], meta: Dict[str, Any]) -> None:
+def write_payload(path: str, payload: Dict[str, Any], meta: Dict[str, Any]) -> None:
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
@@ -93,7 +93,7 @@ class CheckpointWriter:
     def save(self, payload: Dict[str, Any], meta: Dict[str, Any], step: int,
              metric: Optional[float] = None) -> str:
         path = os.path.join(self.directory, f"step_{int(step):010d}.pt")
-        _write(path, payload, meta)
+        write_payload(path, payload, meta)
         self._entries = [e for e in self._entries if e["path"] != path]
         self._entries.append({"path": path, "step": int(step),
                               "metric": None if metric is None else float(metric)})

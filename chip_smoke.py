@@ -106,7 +106,34 @@ Phases, one progress line each:
                with their launch counts (counterfactual K1 20, train step
                K1 + K1-bwd 10 + 10, sample none; K2 0 on each: 3-D blocks run
                Conv3d); the counterfactual's and the step's times, the profiler
-  18. turns  - with --parent DIR (an earlier tree of the repository, unpacked):
+  18. pgm_train - PGM and predictor training (pgm/train_pgm.py): Morpho-MNIST
+               sup_pgm and sup_aux at bs 32, semi_sup at checkpoints/
+               semisup_morpho's hparams (bs 64, sup_frac 0.1) and ChestPGM
+               semi_sup at checkpoints/semi_sup_mimic's (64^2, bs 32, alpha
+               0.1, the GroupNorm ResNet-18): three updates, each card
+               against the CPU plain path from the same parameters, EMA and
+               AdamW moments with the same batches and guide draws (losses and
+               site log-probs 1e-4 rel, parameters and EMA within 2 lr), no
+               kernel launched, the time of a step (median of 15), the
+               profiler
+  19. dense_cf - DSCM.forward(do_mask=...) on morphomnist (float32, bs 32,
+               rows under no do, thickness, intensity, digit and both
+               continuous ones): K1's 40 launches, card against CPU (noise
+               injected), the dense rows against the sparse forward of each
+               pattern, its time; ukbb192 bf16 at bs 2 under a mixed mask
+               over the binary roots and the flows: K2 against its plain
+               version at the path's shapes, K2's 200 launches, card against
+               CPU within the transfer's bound
+  20. cmnist_cf - DSCM.forward do(colour) on Colour-MNIST (the registry's
+               cmnist = checkpoints/cmnist/final_cmnist's configuration,
+               ColourMNISTPGM as PGM and predictor): K1 against its plain
+               version at the path's shapes, the main path at bs 32 with K1's
+               launches, card against CPU at bs 2, its time
+  21. simple_vae - SimpleVAE + GaussNet (diag_gauss) on morphomnist, cond_prior
+               off and on: three train steps card against CPU (draws and the
+               dropout options injected), DSCM.forward at bs 32 and
+               sample(t=0.7) card against CPU and timed; no kernel launched
+  22. turns  - with --parent DIR (an earlier tree of the repository, unpacked):
                that tree's K2 float32 kernel at every ukbb shape, K4 in both
                modes and ukbb64 forward against this tree's, in turns (parent,
                this, this, parent), each a process of its own; K4's output
@@ -2587,6 +2614,610 @@ def phase_turns(parent):
     return turns
 
 
+# ---------------------------------------------------------------------------
+# Slice 8: PGM training, the dense counterfactual, Colour-MNIST, SimpleVAE
+# ---------------------------------------------------------------------------
+
+# PGMConfig overrides of each training setup: sup_pgm and sup_aux at bs BS
+# with the CLI's defaults; semi_sup at checkpoints/semisup_morpho's hparams
+# and, for ChestPGM, checkpoints/semi_sup_mimic's
+PGM_SETUPS = {
+    "sup_pgm": dict(dataset="morphomnist", setup="sup_pgm", bs=BS),
+    "sup_aux": dict(dataset="morphomnist", setup="sup_aux", bs=BS),
+    "semi_sup": dict(dataset="morphomnist", setup="semi_sup", bs=64, lr=5e-4, sup_frac=0.1,
+                     alpha=1e-3),
+    "semi_sup_mimic": dict(dataset="mimic", setup="semi_sup", bs=32, lr=1e-3, sup_frac=0.1,
+                           alpha=0.1, input_res=64),
+}
+# the labelled split's size: 10% of Morpho-MNIST's 60,000 training images;
+# chip_smoke holds no MIMIC split, so 1,000 there
+PGM_N_LABELLED = {"morphomnist": 6000, "mimic": 1000}
+PGM_CLASSES = {"digit": 10, "colour": 10, "race": 3}
+
+
+def pgm_batch(dataset, n, res, rng):
+    """A PGM loader batch (concat_pa=False) of ``n`` from ``rng``: uint8
+    NHWC x and each parent in the PGM's space."""
+    import numpy as np
+
+    out = {"x": rng.integers(0, 256, (n, res, res, 3 if dataset == "cmnist" else 1))
+           .astype(np.uint8)}
+    kinds = {"morphomnist": {"thickness": "continuous", "intensity": "continuous",
+                             "digit": "categorical"},
+             "mimic": {"sex": "binary", "age": "continuous", "race": "categorical",
+                       "finding": "binary"}}[dataset]
+    for k, kind in kinds.items():
+        if kind == "categorical":
+            out[k] = np.eye(PGM_CLASSES[k], dtype=np.float32)[rng.integers(0, PGM_CLASSES[k], n)]
+        elif kind == "binary":
+            out[k] = rng.integers(0, 2, (n, 1)).astype(np.float32)
+        else:
+            out[k] = rng.uniform(-0.8, 0.8, (n, 1)).astype(np.float32)
+    return out
+
+
+def guide_draws(model, n, rng):
+    """The guide's draws of every site for ``n`` rows (CPU tensors): a
+    standard normal (continuous), a uniform (binary), a standard Gumbel
+    (categorical)."""
+    import torch
+
+    out = {}
+    for k, kind in model.dag_variables.items():
+        if kind == "categorical":
+            out[k] = rng.gumbel(size=(n, PGM_CLASSES[k]))
+        elif kind == "binary":
+            out[k] = rng.uniform(0, 1, (n, 1))
+        else:
+            out[k] = rng.standard_normal((n, 1))
+    return {k: torch.tensor(v, dtype=torch.float32) for k, v in out.items()}
+
+
+def pgm_updates_card_vs_cpu(cfg, state, batches, draws):
+    """Three updates of ``cfg.setup`` from ``state`` (the module's
+    state_dict) on ``batches`` ((labelled, unlabelled) raw pairs) with the
+    guide's ``draws``, each made on the card and on the CPU from the same
+    parameters, EMA and AdamW moments (the card's copied from the CPU's
+    before each), so that an update's parameters differ by at most 2 lr
+    where a rounding-level gradient element takes another sign. Returns per
+    update the metrics' rel errors, the largest parameter and EMA errors,
+    and the card's metrics."""
+    import copy
+
+    import torch
+
+    from causal_gen_tpu_torch.convert import build_pgm
+    from causal_gen_tpu_torch.pgm.train_pgm import (init_pgm_state, preprocess_pgm_batch,
+                                                    semi_sup_step, train_step)
+
+    sts = {}
+    for d in ("cpu", "cuda"):
+        model = build_pgm(cfg.to_dict(), cfg.setup != "sup_pgm", torch.device(d))
+        model.load_state_dict(state)
+        sts[d] = init_pgm_state(cfg, model)
+    out = []
+    for raw_l, raw_u in batches:
+        cpu, gpu = sts["cpu"], sts["cuda"]
+        gpu.model.load_state_dict(cpu.model.state_dict())
+        gpu.ema.load_state_dict(cpu.ema.state_dict())
+        gpu.optimizer.load_state_dict(copy.deepcopy(cpu.optimizer.state_dict()))
+        gpu.step = cpu.step
+        ms = {}
+        for key, st in sts.items():
+            d = torch.device(key)
+            b_l = preprocess_pgm_batch(cfg, raw_l, d)
+            if cfg.setup == "semi_sup":
+                m = semi_sup_step(cfg, st, b_l, preprocess_pgm_batch(cfg, raw_u, d),
+                                  PGM_N_LABELLED[cfg.dataset],
+                                  draws={k: v.to(d) for k, v in draws.items()})
+            else:
+                m = train_step(cfg, st, b_l)
+            ms[key] = {k: float(v) for k, v in m.items()}
+        torch.cuda.synchronize()
+        err = {w: max((getattr(gpu, w).state_dict()[k].cpu() - v).abs().max().item()
+                      for k, v in getattr(cpu, w).state_dict().items()) for w in ("model", "ema")}
+        out.append({"rel_err": rel_errs(ms["cuda"], ms["cpu"], list(ms["cpu"])),
+                    "params_max_abs_err": err["model"], "ema_max_abs_err": err["ema"],
+                    "card": ms["cuda"]})
+    return out
+
+
+def phase_pgm_train(names=("sup_pgm", "sup_aux", "semi_sup")):
+    """PGM and predictor training (pgm/train_pgm.py) at the setups of
+    PGM_SETUPS, weights and batches from the seed: three updates, each card
+    against CPU from the same state with the same batches and guide draws
+    (``pgm_updates_card_vs_cpu``: losses and site log-probs within 1e-4 rel,
+    parameters and EMA within 2 lr); no kernel launched; the time of a step
+    (median of 15) and the device's busy share under the profiler."""
+    import numpy as np
+    import torch
+
+    from causal_gen_tpu_torch.convert import build_pgm
+    from causal_gen_tpu_torch.pgm.train_pgm import (PGMConfig, init_pgm_state,
+                                                    preprocess_pgm_batch, semi_sup_step,
+                                                    train_step)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    out = {}
+    for name in names:
+        cfg = PGMConfig(**PGM_SETUPS[name])
+        semi = cfg.setup == "semi_sup"
+        model = build_pgm(cfg.to_dict(), cfg.setup != "sup_pgm", dev,
+                          generator=torch.Generator().manual_seed(SEED + 130))
+        state = {k: v.cpu() for k, v in model.state_dict().items()}
+        rng = np.random.default_rng(SEED + 131)
+        batches = [(pgm_batch(cfg.dataset, cfg.bs, cfg.input_res, rng),
+                    pgm_batch(cfg.dataset, cfg.bs, cfg.input_res, rng)) for _ in range(3)]
+        draws = guide_draws(model, cfg.bs, rng)
+        ups = pgm_updates_card_vs_cpu(cfg, state, batches, draws)
+        worst = [max(v for k, v in u["rel_err"].items() if k != "grad_norm") for u in ups]
+        perr = max(max(u["params_max_abs_err"], u["ema_max_abs_err"]) for u in ups)
+        bound = 2 * cfg.lr + 1e-6
+        if max(worst) > 1e-4 or perr > bound or \
+                not all(math.isfinite(v) for u in ups for v in u["card"].values()):
+            raise AssertionError(f"{name} card vs CPU: {ups} (parameter bound {bound:.2e})")
+        res = out[name] = {"config": cfg.to_dict(), "updates": ups, "bound_2_lr": bound}
+        losses = ", ".join(f"{u['card']['loss']:.6g}" for u in ups)
+        log("pgm_train", f"{name} ({cfg.dataset}, bs {cfg.bs}): 3 updates, each card == CPU "
+                         f"from the same state (TF32 off, the same batches and guide draws): "
+                         f"losses and site log-probs rel {', '.join(f'{w:.2e}' for w in worst)}; "
+                         f"grad norms rel {max(u['rel_err']['grad_norm'] for u in ups):.2e}; "
+                         f"params and EMA {perr:.2e} (2 lr {bound:.1e}); card losses {losses}")
+
+        # the path: counts set to 0 just before a step, read just after
+        st = init_pgm_state(cfg, model)
+        b_l, b_u = (preprocess_pgm_batch(cfg, b, dev) for b in batches[0])
+        g = torch.Generator().manual_seed(SEED + 132)
+        n_l = PGM_N_LABELLED[cfg.dataset]
+
+        def step():
+            if semi:
+                return semi_sup_step(cfg, st, b_l, b_u, n_l, generator=g)
+            return train_step(cfg, st, b_l)
+
+        reset_counts()
+        step()
+        torch.cuda.synchronize()
+        res["launches"] = read_counts()
+        if any(res["launches"].values()):
+            raise AssertionError(f"{name}: PGM training launched a kernel: {res['launches']}")
+        for _ in range(3):
+            step()
+        times = []
+        for _ in range(15):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        res["profile"] = profile_calls(step, 3, "step")
+        ms = statistics.median(times)
+        res.update({"step_ms": ms, "step_ms_all": times,
+                    "samples_per_s": cfg.bs * (2 if semi else 1) / ms * 1e3})
+        log("pgm_train", f"{name} step bs {cfg.bs}{' labelled + ' + str(cfg.bs) + ' unlabelled' if semi else ''}: "
+                         f"median {ms:.3f} ms over 15 (min {min(times):.3f}, max "
+                         f"{max(times):.3f}); no kernel launched")
+    reset_counts()
+    return out
+
+
+DENSE_PATTERNS = ((), ("thickness",), ("intensity",), ("digit",), ("thickness", "intensity"))
+
+
+def dense_do(obs, patterns, rng):
+    """(do values of every parent, (B, 1) masks, each row's pattern): row i
+    takes ``patterns[i % len]``; a value is another draw of the parent's
+    kind (1 - x for a binary one, another one-hot, a uniform in [-0.8, 0.8])."""
+    import numpy as np
+    import torch
+
+    n = obs["x"].shape[0]
+    dev = obs["x"].device
+    rows = [patterns[i % len(patterns)] for i in range(n)]
+    values, masks = {}, {}
+    for k, v in obs.items():
+        if k == "x":
+            continue
+        if v.shape[1] > 1:
+            new = np.eye(v.shape[1])[rng.integers(0, v.shape[1], n)]
+        elif k in ("sex", "mri_seq", "finding"):
+            new = 1.0 - v.cpu().numpy()
+        else:
+            new = rng.uniform(-0.8, 0.8, (n, 1))
+        values[k] = torch.tensor(new, dtype=torch.float32, device=dev)
+        masks[k] = torch.tensor([[float(k in r)] for r in rows], device=dev)
+    return values, masks, rows
+
+
+def phase_dense_cf(cfg):
+    """DSCM.forward(do_mask=...) (counterfactual_dense): on the registry's
+    morphomnist in float32 at bs BS with rows under DENSE_PATTERNS, the main
+    path with K1's launch count (40, as the sparse forward), card against the
+    CPU plain path with the noise injected (cf_x 1e-4, terms 1e-4 rel), the
+    dense rows against the sparse forward of each pattern on the card, its
+    time; then ukbb192 in bf16 at bs CHECK_BS under a mixed mask over the
+    binary roots and the flows: K2 against its plain version at the path's
+    shapes, the launches (K2 200, K1 80), card against CPU within the
+    transfer's bound."""
+    import numpy as np
+    import torch
+
+    from causal_gen_tpu_torch.ops.fused_block import fused_light_block, fused_light_block_ref
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    dscm = build_slice(cfg, "cuda")
+    obs = synth_obs(cfg, dev)
+    rng = np.random.default_rng(SEED + 140)
+    do, mask, rows = dense_do(obs, DENSE_PATTERNS, rng)
+    n_sto = len(k1_res(cfg))
+    g = torch.Generator().manual_seed(SEED + 141)
+    out = {}
+    with torch.inference_mode():
+        reset_counts()
+        r = dscm.forward(obs, do, generator=g, do_mask=mask)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = dict(dict.fromkeys(counts, 0), fused_sample_kl=2 * n_sto)
+        if counts != want or not torch.isfinite(r["cfs"]["x"]).all():
+            raise AssertionError(f"dense DSCM.forward: launches {counts}, expected {want}")
+        out["launches"] = counts
+        noise = [e.to(dev) for e in normals(cfg, BS, rng, passes=2)]
+        gpu = dscm.forward(obs, do, noise=noise, do_mask=mask)
+        cpu_d = build_slice(cfg, "cpu", state=state_of(dscm.vae, dscm.pgm, dscm.predictor))
+        cpu = cpu_d.forward({k: v.cpu() for k, v in obs.items()},
+                            {k: v.cpu() for k, v in do.items()},
+                            noise=[e.cpu() for e in noise],
+                            do_mask={k: v.cpu() for k, v in mask.items()})
+        err = (gpu["cfs"]["x"].cpu() - cpu["cfs"]["x"]).abs().max().item()
+        pa_err = max((gpu["cfs"][k].cpu() - cpu["cfs"][k]).abs().max().item()
+                     for k in do)
+        rel = rel_errs(gpu, cpu, ("elbo", "nll", "kl", "aux_loss", "loss"))
+        if err > 1e-4 or pa_err > 1e-5 or max(rel.values()) > 1e-4:
+            raise AssertionError(f"dense card vs CPU: cf_x {err:.3e}, parents {pa_err:.3e}, {rel}")
+        sparse_err = 0.0
+        for pat in DENSE_PATTERNS:
+            idx = [i for i, p in enumerate(rows) if p == pat]
+            if not idx:
+                continue
+            sub = dscm.forward({k: v[idx] for k, v in obs.items()},
+                               {k: do[k][idx] for k in pat}, noise=[e[idx] for e in noise])
+            sparse_err = max(sparse_err, (sub["cfs"]["x"] - gpu["cfs"]["x"][idx]).abs().max()
+                             .item(), *((sub["cfs"][k] - gpu["cfs"][k][idx]).abs().max().item()
+                                        for k in do))
+        if sparse_err > 1e-4:
+            raise AssertionError(f"dense vs sparse on the card: max err {sparse_err:.3e}")
+        out.update(card_vs_cpu={"cf_x_max_abs_err": err, "parents_max_abs_err": pa_err,
+                                "rel_err": rel}, dense_vs_sparse_max_abs_err=sparse_err)
+        log("dense_cf", f"morphomnist bs {BS}, rows under {[list(p) for p in DENSE_PATTERNS]}: "
+                        f"K1 {counts['fused_sample_kl']} launches; card == CPU (TF32 off, noise "
+                        f"injected): cf_x {err:.2e}, parents {pa_err:.2e}, terms rel "
+                        f"{max(rel.values()):.2e}; dense == sparse per pattern on the card: "
+                        f"{sparse_err:.2e}")
+        for _ in range(3):
+            dscm.forward(obs, do, generator=g, do_mask=mask)
+        times = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dscm.forward(obs, do, generator=g, do_mask=mask)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["profile"] = profile_calls(lambda: dscm.forward(obs, do, generator=g, do_mask=mask),
+                                       3, "forward")
+    ms = statistics.median(times)
+    out.update(forward_ms=ms, forward_ms_all=times, cf_per_s=BS / ms * 1e3,
+               k1_bound_ms_per_forward=k1_bounds(cfg, BS, 2)["k1_bound_ms_per_call"])
+    log("dense_cf", f"morphomnist dense DSCM.forward bs {BS}: median {ms:.3f} ms over 20 (min "
+                    f"{min(times):.3f}, max {max(times):.3f}) = {BS / ms * 1e3:.1f} cf/s")
+    del dscm, cpu_d
+
+    # ukbb192 in bf16 at bs CHECK_BS: the binary roots and K2 on the dense path
+    c = ukbb_config("bfloat16", CHECK_BS)
+    gpu_d = build_ukbb(c, "cuda")
+    cpu_d = build_ukbb(c, "cpu", state_of(gpu_d.vae, gpu_d.pgm, gpu_d.predictor))
+    enc_k2, dec_k2 = k2_cover(gpu_d.vae)
+    k2_err = 0.0
+    for (ch, cb, res_), _ in k2_blocks_by_shape(c, gpu_d.vae).items():
+        args = k2_inputs(CHECK_BS, ch, cb, res_, res_, torch.bfloat16, True, dev, seed=SEED + 142)
+        k2_err = max(k2_err, k2_compare(args, fused_light_block(*args),
+                                        fused_light_block_ref(*args))[0])
+    obs_c = ukbb_obs(c, CHECK_BS, torch.device("cpu"), seed=SEED + 143)
+    pats = (("sex", "ventricle_volume"), ("mri_seq", "age"))
+    do_c, mask_c, _ = dense_do(obs_c, pats, rng)
+    noise = [torch.from_numpy(rng.standard_normal((CHECK_BS, c.z_dim, r, r)).astype(np.float32))
+             for r in k1_res(c) * 2]
+    n_sto = len(k1_res(c))
+    with torch.inference_mode():
+        reset_counts()
+        gpu = gpu_d.forward({k: v.to(dev) for k, v in obs_c.items()},
+                            {k: v.to(dev) for k, v in do_c.items()},
+                            noise=[e.to(dev) for e in noise],
+                            do_mask={k: v.to(dev) for k, v in mask_c.items()})
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = dict(dict.fromkeys(counts, 0), fused_sample_kl=2 * n_sto,
+                    fused_light_block=2 * enc_k2 + 4 * dec_k2,
+                    fused_light_block_tc=2 * enc_k2 + 4 * dec_k2)
+        if counts != want:
+            raise AssertionError(f"ukbb192 dense DSCM.forward: launches {counts}, expected {want}")
+        cpu = cpu_d.forward(obs_c, do_c, noise=noise, do_mask=mask_c)
+        err = (gpu["cfs"]["x"].cpu() - cpu["cfs"]["x"]).abs()
+        bound = ukbb_transfer_bound(cpu_d, obs_c, cpu, noise[n_sto:])
+        over = (err / bound).max().item()
+        pa_err = max((gpu["cfs"][k].cpu() - cpu["cfs"][k]).abs().max().item() for k in do_c)
+        rel = rel_errs(gpu, cpu, ("elbo", "nll", "kl", "aux_loss", "loss"))
+        if over > 1 or pa_err > 1e-5 or max(rel[k] for k in ("elbo", "nll", "kl")) > 2e-2 \
+                or max(rel[k] for k in ("aux_loss", "loss")) > 2.0 ** -4:
+            raise AssertionError(f"ukbb192 dense card vs CPU: cf_x {over:.3f} of the bound, "
+                                 f"parents {pa_err:.3e}, {rel}")
+        # the masked parents took their do values, the others their observed ones
+        for k in ("sex", "mri_seq"):
+            want_k = torch.where(mask_c[k] > 0, do_c[k], obs_c[k])
+            if not torch.equal(cpu["cfs"][k], want_k):
+                raise AssertionError(f"ukbb192 dense: binary root {k} {cpu['cfs'][k]}")
+    out["ukbb192"] = {"launches": counts, "k2_max_abs_err": k2_err,
+                      "cf_x_err_over_bound": over, "cf_x_max_abs_err": err.max().item(),
+                      "parents_max_abs_err": pa_err, "rel_err": rel}
+    log("dense_cf", f"ukbb192 bf16 bs {CHECK_BS}, rows under {[list(p) for p in pats]}: K2 == "
+                    f"plain version at the path's shapes (max err {k2_err:.3e}); launches K2 "
+                    f"{counts['fused_light_block_tc']}, K1 {counts['fused_sample_kl']}; card == "
+                    f"CPU: cf_x {over:.3f} of the transfer's bound, parents {pa_err:.1e}, "
+                    + ", ".join(f"{k} rel {v:.2e}" for k, v in rel.items()))
+    reset_counts()
+    return out
+
+
+def cmnist_config(bs=BS):
+    """The registry's cmnist: checkpoints/cmnist/final_cmnist's configuration
+    (widths 16-256, 32^2 RGB, diag_dgauss; tests/test_torch_cmnist_pgm.py
+    holds the two equal)."""
+    from causal_gen_tpu_torch.config import get_config
+
+    return get_config("cmnist", bs=bs)
+
+
+def build_cmnist(cfg, device, state=None):
+    """A Colour-MNIST DSCM: the HVAE and ColourMNISTPGM as PGM and as
+    predictor, weights from the seed or ``state``."""
+    import torch
+
+    from causal_gen_tpu_torch.models.hvae import HVAE
+    from causal_gen_tpu_torch.pgm.dscm import DSCM
+    from causal_gen_tpu_torch.pgm.flow_pgm import ColourMNISTPGM
+
+    g = torch.Generator().manual_seed(SEED + 150)
+    mods = (HVAE(cfg, device=device, generator=g),
+            ColourMNISTPGM(setup_predictors=False, device=device, generator=g),
+            ColourMNISTPGM(input_res=cfg.input_res, device=device, generator=g))
+    if state is not None:
+        for mod, sd in zip(mods, state):
+            mod.load_state_dict(sd)
+    return DSCM(cfg, mods[1], mods[2], mods[0])
+
+
+def cmnist_obs(cfg, n, device, rng):
+    import numpy as np
+    import torch
+
+    obs = {"x": rng.uniform(-1, 1, (n, 3, cfg.input_res, cfg.input_res)),
+           "digit": np.eye(10)[rng.integers(0, 10, n)],
+           "colour": np.eye(10)[rng.integers(0, 10, n)]}
+    return {k: torch.tensor(v, dtype=torch.float32, device=device) for k, v in obs.items()}
+
+
+def phase_cmnist_cf():
+    """DSCM.forward do(colour) on Colour-MNIST (final_cmnist's configuration,
+    ColourMNISTPGM as PGM and predictor, seeded weights): K1 against its
+    plain version at the path's shapes; the main path at bs BS under
+    inference_mode with K1's launches; card against the CPU plain path at bs
+    CHECK_BS with the noise injected (cf_x 1e-4, terms 1e-4 rel); its time."""
+    import numpy as np
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = cmnist_config()
+    out = {"k1_max_abs_err": k1_check(k1_shapes(cfg), torch.Generator().manual_seed(SEED + 151))}
+    dscm = build_cmnist(cfg, "cuda")
+    rng = np.random.default_rng(SEED + 152)
+    obs = cmnist_obs(cfg, BS, dev, rng)
+    do = {"colour": torch.tensor(np.eye(10)[rng.integers(0, 10, BS)], dtype=torch.float32,
+                                 device=dev)}
+    n_sto = len(k1_res(cfg))
+    g = torch.Generator().manual_seed(SEED + 153)
+    with torch.inference_mode():
+        reset_counts()
+        r = dscm.forward(obs, do, generator=g)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = dict(dict.fromkeys(counts, 0), fused_sample_kl=2 * n_sto)
+        if counts != want or not torch.isfinite(r["cfs"]["x"]).all() or \
+                not torch.equal(r["cfs"]["colour"], do["colour"]) or \
+                not torch.equal(r["cfs"]["digit"], obs["digit"]):
+            raise AssertionError(f"cmnist DSCM.forward: launches {counts}, expected {want}")
+        out["launches"] = counts
+        c = cmnist_config(CHECK_BS)
+        state = state_of(dscm.vae, dscm.pgm, dscm.predictor)
+        cpu_d = build_cmnist(c, "cpu", state)
+        obs_c = {k: v[:CHECK_BS].cpu() for k, v in obs.items()}
+        do_c = {k: v[:CHECK_BS].cpu() for k, v in do.items()}
+        noise = normals(c, CHECK_BS, rng, passes=2)
+        gpu = build_cmnist(c, "cuda", state).forward(
+            {k: v.to(dev) for k, v in obs_c.items()}, {k: v.to(dev) for k, v in do_c.items()},
+            noise=[e.to(dev) for e in noise])
+        cpu = cpu_d.forward(obs_c, do_c, noise=noise)
+        err = (gpu["cfs"]["x"].cpu() - cpu["cfs"]["x"]).abs().max().item()
+        rel = rel_errs(gpu, cpu, ("elbo", "nll", "kl", "aux_loss", "loss"))
+        if err > 1e-4 or max(rel.values()) > 1e-4:
+            raise AssertionError(f"cmnist card vs CPU: cf_x {err:.3e}, {rel}")
+        out["card_vs_cpu"] = {"cf_x_max_abs_err": err, "rel_err": rel}
+        log("cmnist_cf", f"K1 == plain version at {k1_shapes(cfg)} (max err "
+                         f"{out['k1_max_abs_err']:.2e}); main path do(colour) bs {BS}: K1 "
+                         f"{counts['fused_sample_kl']} launches; bs {CHECK_BS} card == CPU (TF32 "
+                         f"off, noise injected): cf_x {err:.2e}, terms rel {max(rel.values()):.2e}")
+        times = forward_times(dscm, obs, do, g)
+        out["profile"] = profile_calls(lambda: dscm.forward(obs, do, generator=g), 3, "forward")
+    ms = statistics.median(times)
+    out.update(forward_ms=ms, forward_ms_all=times, cf_per_s=BS / ms * 1e3,
+               k1_bound_ms_per_forward=k1_bounds(cfg, BS, 2)["k1_bound_ms_per_call"])
+    log("cmnist_cf", f"cmnist DSCM.forward do(colour) bs {BS}: median {ms:.3f} ms over 20 (min "
+                     f"{min(times):.3f}, max {max(times):.3f}) = {BS / ms * 1e3:.1f} cf/s")
+    reset_counts()
+    return out
+
+
+def simple_config(cond_prior, bs=BS):
+    """The registry's morphomnist with the simple VAE and its logit-Normal
+    head (diag_gauss), cond_prior off or on."""
+    from causal_gen_tpu_torch.config import get_config
+
+    return get_config("morphomnist", bs=bs, vae="simple", x_like="diag_gauss",
+                      cond_prior=cond_prior)
+
+
+def build_simple(cfg, device, state=None):
+    """A Morpho-MNIST DSCM (``build_slice``'s PGMs) with SimpleVAE as the
+    image mechanism, weights from the seed or ``state``."""
+    import torch
+
+    from causal_gen_tpu_torch.models.simple_vae import SimpleVAE
+    from causal_gen_tpu_torch.pgm.dscm import DSCM
+    from causal_gen_tpu_torch.pgm.flow_pgm import MorphoMNISTPGM
+
+    g = torch.Generator().manual_seed(SEED + 160)
+    mods = (SimpleVAE(cfg, device=device, generator=g),
+            MorphoMNISTPGM(setup_predictors=False, device=device, generator=g),
+            MorphoMNISTPGM(input_res=cfg.input_res, device=device, generator=g))
+    if state is not None:
+        for mod, sd in zip(mods, state):
+            mod.load_state_dict(sd)
+    elif cfg.cond_prior:  # the zero-initialised prior heads would hide the parents
+        fill_zero_leaves(mods[0], torch.Generator().manual_seed(SEED + 161))
+    return DSCM(cfg, mods[1], mods[2], mods[0], elbo_constraint=1.8)
+
+
+def simple_draws(cfg, n, rng, kind):
+    """CPU draws of the simple VAE: the latent's normal (n, z_dim), then the
+    head's: GaussNet's dequantisation uniforms ("nll") or its normal
+    ("sample"), of the image's shape."""
+    import numpy as np
+    import torch
+
+    res = cfg.input_res
+    head = (rng.uniform(0, 1, (n, 1, res, res)) if kind == "nll"
+            else rng.standard_normal((n, 1, res, res)))
+    return [torch.from_numpy(rng.standard_normal((n, cfg.z_dim)).astype(np.float32)),
+            torch.from_numpy(head.astype(np.float32))]
+
+
+def phase_simple_vae():
+    """SimpleVAE + GaussNet (diag_gauss) on morphomnist with cond_prior off and
+    on, seeded weights: three train steps card against the CPU plain path
+    with the draws and (cond_prior) the dropout options 0, 1, 2 injected
+    (metrics 1e-4 rel, parameters within 2 sum(lr)); DSCM.forward do(thickness)
+    at bs BS card against CPU (cf_x 1e-4, terms 1e-4 rel) and its time;
+    sample(return_loc=False, t=0.7) card against CPU (1e-4) and its time; no
+    kernel launched on any of them."""
+    import numpy as np
+    import torch
+
+    from causal_gen_tpu_torch.train.state import init_train_state
+    from causal_gen_tpu_torch.train.vae_trainer import to_device, train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, cpu_dev = torch.device("cuda"), torch.device("cpu")
+    out = {}
+    for cp in (False, True):
+        cfg = simple_config(cp)
+        name = "cond_prior" if cp else "plain"
+        res = out[name] = {}
+        dscm = build_simple(cfg, "cuda")
+        state = state_of(dscm.vae, dscm.pgm, dscm.predictor)
+        rng = np.random.default_rng(SEED + 162)
+        batches = [synth_batch(cfg, rng) for _ in range(3)]
+        draws = [([torch.tensor(s)] if cp else []) + simple_draws(cfg, BS, rng, "nll")
+                 for s in range(3)]
+        ms, sts, lrs = {}, {}, []
+        for key, d in (("cpu", cpu_dev), ("cuda", dev)):
+            st = sts[key] = init_train_state(cfg, build_simple(cfg, d, state).vae)
+            ms[key] = []
+            for b, dr in zip(batches, draws):
+                if key == "cpu":
+                    lrs.append(st.optimizer.param_groups[0]["lr"])
+                r = train_step(cfg, st, to_device(b, d), noise=[[e.to(d) for e in dr]])
+                ms[key].append({k: float(v) for k, v in r.items()})
+        rel = [rel_errs(g, c, ("elbo", "nll", "kl", "grad_norm"))
+               for g, c in zip(ms["cuda"], ms["cpu"])]
+        perr = max((sts["cuda"].model.state_dict()[k].cpu() - v).abs().max().item()
+                   for k, v in sts["cpu"].model.state_dict().items())
+        bound = 2 * sum(lrs) + 1e-6
+        if max(max(r.values()) for r in rel) > 1e-4 or perr > bound or \
+                any(m["skipped"] for m in ms["cuda"]):
+            raise AssertionError(f"simple VAE {name} train card vs CPU: {rel}, params {perr:.3e} "
+                                 f"(bound {bound:.3e})")
+        res["train_card_vs_cpu"] = {"rel_err_by_update": rel, "params_max_abs_err": perr,
+                                    "bound_2_sum_lr": bound}
+
+        obs = synth_obs(cfg, dev)
+        do = {"thickness": torch.full((BS, 1), 0.5, device=dev)}
+        g = torch.Generator().manual_seed(SEED + 163)
+        pa = torch.cat([obs["thickness"], obs["intensity"], obs["digit"]], dim=1)
+        with torch.inference_mode():
+            noise = simple_draws(cfg, BS, rng, "nll") + simple_draws(cfg, BS, rng, "nll")[:1]
+            cpu_d = build_simple(cfg, "cpu", state)
+            gpu = dscm.forward(obs, do, noise=[e.to(dev) for e in noise])
+            cpu = cpu_d.forward({k: v.cpu() for k, v in obs.items()},
+                                {k: v.cpu() for k, v in do.items()}, noise=noise)
+            err = (gpu["cfs"]["x"].cpu() - cpu["cfs"]["x"]).abs().max().item()
+            rel_f = rel_errs(gpu, cpu, ("elbo", "nll", "kl", "aux_loss", "loss"))
+            sd = simple_draws(cfg, BS, rng, "sample")
+            sx, _ = dscm.vae.sample(pa, False, 0.7, noise=iter([e.to(dev) for e in sd]))
+            cx, _ = cpu_d.vae.sample(pa.cpu(), False, 0.7, noise=iter(sd))
+            s_err = (sx.cpu() - cx).abs().max().item()
+            if err > 1e-4 or max(rel_f.values()) > 1e-4 or s_err > 1e-4:
+                raise AssertionError(f"simple VAE {name} card vs CPU: cf_x {err:.3e}, {rel_f}, "
+                                     f"sample {s_err:.3e}")
+            res["forward_card_vs_cpu"] = {"cf_x_max_abs_err": err, "rel_err": rel_f}
+            res["sample_max_abs_err"] = s_err
+            reset_counts()
+            dscm.forward(obs, do, generator=g)
+            dscm.vae.sample(pa, False, 0.7, generator=g)
+            torch.cuda.synchronize()
+            res["launches"] = read_counts()
+            if any(res["launches"].values()):
+                raise AssertionError(f"simple VAE {name}: a kernel launched {res['launches']}")
+            times = forward_times(dscm, obs, do, g)
+            for _ in range(3):
+                dscm.vae.sample(pa, False, 0.7, generator=g)
+            s_times = []
+            for _ in range(15):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dscm.vae.sample(pa, False, 0.7, generator=g)
+                torch.cuda.synchronize()
+                s_times.append((time.perf_counter() - t0) * 1e3)
+            res["profile_forward"] = profile_calls(lambda: dscm.forward(obs, do, generator=g),
+                                                   3, "forward")
+        fwd, smp = statistics.median(times), statistics.median(s_times)
+        res.update(forward_ms=fwd, forward_ms_all=times, cf_per_s=BS / fwd * 1e3,
+                   sample_ms=smp, sample_ms_all=s_times, samples_per_s=BS / smp * 1e3)
+        log("simple_vae", f"{name}: 3 train steps card == CPU (TF32 off, draws injected"
+                          f"{', options 0/1/2' if cp else ''}): metrics rel "
+                          f"{max(max(r.values()) for r in rel):.2e}, params {perr:.2e} (2 sum(lr) "
+                          f"{bound:.1e}); DSCM.forward bs {BS} cf_x {err:.2e}, terms rel "
+                          f"{max(rel_f.values()):.2e}; sample t=0.7 {s_err:.2e}; no kernel "
+                          f"launched; forward median {fwd:.3f} ms ({BS / fwd * 1e3:.1f} cf/s), "
+                          f"sample median {smp:.3f} ms ({BS / smp * 1e3:.1f} images/s)")
+    reset_counts()
+    return out
+
+
 TRAIN_CONFIGS = {"morphomnist": {}, "cmnist_dmol": {"x_like": "diag_dmol"}}
 
 
@@ -2890,6 +3521,11 @@ def main() -> int:
     mim = phase_mimic()
     cp = phase_cond_prior()
     vol = phase_vol3d()
+    pgm = phase_pgm_train()
+    pgm.update(phase_pgm_train(("semi_sup_mimic",)))
+    dcf = phase_dense_cf(cfg)
+    ccf = phase_cmnist_cf()
+    svae = phase_simple_vae()
     turns = phase_turns(os.path.abspath(args.parent)) if args.parent else None
     # launches on the main paths, each counted from 0: DSCM.forward (the
     # Morpho-MNIST, ukbb192, ukbb64 and mimic192 serving slices),
@@ -2908,6 +3544,11 @@ def main() -> int:
     by_path.update({f"{path} morphomnist {v}": c for v in VARIANTS
                     for path, c in cp[v]["launches"].items()})
     by_path.update({f"{path} vol3d32 bf16": c for path, c in vol["launches"].items()})
+    by_path.update({"DSCM.forward(do_mask) morphomnist": dcf["launches"],
+                    "DSCM.forward(do_mask) ukbb192 bf16 bs 2": dcf["ukbb192"]["launches"],
+                    "DSCM.forward cmnist": ccf["launches"]})
+    by_path.update({f"train_pgm {n}": r["launches"] for n, r in pgm.items()})
+    by_path.update({f"DSCM.forward + sample simple_vae {v}": svae[v]["launches"] for v in svae})
 
     # K2's float32 kernel also runs in the float32 card-vs-CPU checks, each
     # counted from 0; those launches are listed apart
@@ -2928,11 +3569,12 @@ def main() -> int:
     kernels = [
         row("fused_sample_kl", "causal_gen_tpu_torch/csrc/sample_kl.cu",
             "causal_gen_tpu/ops/pallas_kernels.py:109",
-            "phase K1 (injected eps at every slice shape + ragged; Philox statistics), "
-            "phase mimic (injected eps at the mimic192 path's shapes) and phase vol3d "
-            "(injected eps at vol3d32's (8,8,r,r,r))",
+            "phase K1 (injected eps at every slice shape + ragged; Philox statistics; the "
+            "dense do_mask path has the slice's shapes), phase mimic (injected eps at the "
+            "mimic192 path's shapes), phase vol3d (injected eps at vol3d32's (8,8,r,r,r)) and "
+            "phase cmnist_cf (injected eps at the Colour-MNIST path's shapes)",
             dict(k1, max_abs_err=max(k1["max_abs_err"], mim["k1_max_abs_err"],
-                                     vol["k1_max_abs_err"])),
+                                     vol["k1_max_abs_err"], ccf["k1_max_abs_err"])),
             ms_inputs_in_l2=k1["ms_l2"], ms_philox=k1["ms_philox"],
             bound_ms_philox=k1["bound_ms_philox"]),
         row("fused_sample_kl_bwd", "causal_gen_tpu_torch/csrc/sample_kl.cu",
@@ -2957,9 +3599,11 @@ def main() -> int:
         row("fused_light_block_tc", "causal_gen_tpu_torch/csrc/fused_block.cu",
             "causal_gen_tpu/ops/fused_block.py:190",
             "phase K2 (bf16 tensor-core kernel; plain version at (B,C,b,H,W) " +
-            ", ".join(map(str, K2_SHAPES)) + ", with and without biases); ms, plain_ms, "
+            ", ".join(map(str, K2_SHAPES)) + ", with and without biases, and phase dense_cf "
+            "at the ukbb192 dense path's shapes, bs 2, with biases); ms, plain_ms, "
             "library_ms (cuDNN conv pair) and bound_ms at (32,32,192,192) b=8; times holds "
-            "every ukbb192 shape", dict(k2, max_abs_err=k2["max_abs_err_bf16"]),
+            "every ukbb192 shape",
+            dict(k2, max_abs_err=max(k2["max_abs_err_bf16"], dcf["ukbb192"]["k2_max_abs_err"])),
             times=k2["times"], per_path=k2["per_path"]),
         row("fused_light_block_simt", "causal_gen_tpu_torch/csrc/fused_block.cu",
             "causal_gen_tpu/ops/fused_block.py:190",
@@ -2979,7 +3623,8 @@ def main() -> int:
     record = {"device": name, "nvidia_smi": smi, "build_s": build_s, "k1": k1, "k1_bwd": k1b,
               "k3": k3, "k4": k4, "k2": k2, "slice": sl, "sample": samp, "train": train,
               "entry": entry, "ukbb": uk, "ukbb_sample": uk_samp, "ukbb_train": uk_train,
-              "ukbb64": uk64, "mimic": mim, "cond_prior": cp, "vol3d": vol, "turns": turns,
+              "ukbb64": uk64, "mimic": mim, "cond_prior": cp, "vol3d": vol, "pgm_train": pgm,
+              "dense_cf": dcf, "cmnist_cf": ccf, "simple_vae": svae, "turns": turns,
               "kernels": kernels,
               "total_s": time.perf_counter() - t_start}
     if args.json:

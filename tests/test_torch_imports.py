@@ -66,6 +66,20 @@ def test_the_variant_slice_modules_are_checked(rel):
     assert f"causal_gen_tpu_torch/{rel}" in {str(p.relative_to(ROOT)) for p in _port_sources()}
 
 
+@pytest.mark.parametrize("rel", ["models/simple_vae.py", "models/likelihoods.py",
+                                 "ops/distributions.py", "pgm/base.py", "pgm/transforms.py",
+                                 "pgm/flow_pgm.py", "pgm/dscm.py", "pgm/train_pgm.py",
+                                 "cli/train_pgm.py", "cli/main.py", "utils/metrics.py",
+                                 "data/loader.py", "convert.py"])
+def test_the_pgm_training_slice_modules_are_checked(rel):
+    """Each module the PGM-training, counterfactual-engine and simple-VAE
+    slice adds or changes is among those held to the rules above, and so is
+    its card test."""
+    checked = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert f"causal_gen_tpu_torch/{rel}" in checked
+    assert "tests/test_torch_pgm_train_gpu.py" in checked
+
+
 def test_every_module_imports_without_jax():
     """Import every module of the package in a fresh interpreter that refuses
     JAX and the JAX package."""

@@ -366,30 +366,74 @@ def patch_jax_gumbel(monkeypatch, seed: int) -> GumbelRecorder:
     return rec
 
 
+def dscm_checkpoint_paths(ckpt_dir) -> Dict[str, str]:
+    """{vae, pgm, aux} -> checkpoint path of a committed DSCM: ``ckpt_dir``
+    is a directory holding ``{vae,pgm,aux}/checkpoint`` (the flagships), or
+    the three paths in that order (Colour-MNIST's, trained apart)."""
+    if isinstance(ckpt_dir, tuple):
+        return dict(zip(("vae", "pgm", "aux"), ckpt_dir))
+    return {k: f"{ckpt_dir}/{k}/checkpoint" for k in ("vae", "pgm", "aux")}
+
+
+def vae_config_path(path: str) -> str:
+    """The file holding an HVAE checkpoint's config: its ``.meta.json``,
+    or the run's ``hparams.json`` where the meta is not committed
+    (``checkpoints/cmnist/final_cmnist``: .gitignore keeps its ``step_*``
+    files out but the restored tree)."""
+    import os
+
+    meta = path + ".meta.json"
+    return meta if os.path.exists(meta) else os.path.join(os.path.dirname(path), "hparams.json")
+
+
+def load_vae_checkpoint(path: str):
+    """``causal_gen_tpu.train.checkpoint.load_checkpoint``, or where the
+    checkpoint's ``.meta.json`` is not committed, the Orbax tree restored
+    with the config of the run's ``hparams.json`` and, as the best ELBO, the
+    lowest metric of its ``index.json``."""
+    import json
+    import os
+    import types
+
+    from causal_gen_tpu.config import Config
+    from causal_gen_tpu.train.checkpoint import load_checkpoint
+
+    if os.path.exists(path + ".meta.json"):
+        return load_checkpoint(path)
+    import orbax.checkpoint as ocp
+
+    run = os.path.dirname(path)
+    with open(os.path.join(run, "hparams.json")) as f:
+        cfg = Config.from_dict(json.load(f))
+    with open(os.path.join(run, "index.json")) as f:
+        best = min(e["metric"] for e in json.load(f)["entries"])
+    payload = ocp.PyTreeCheckpointer().restore(os.path.abspath(path))
+    return cfg, types.SimpleNamespace(ema_params=payload["ema_params"]), {"best_loss": best}
+
+
 @functools.cache
-def _flagship_checkpoints(ckpt_dir: str):
-    """A committed DSCM's three checkpoints (``<ckpt_dir>/{vae,pgm,aux}/
-    checkpoint``), restored once: the HVAE's config, the flax PGM and
+def _flagship_checkpoints(ckpt_dir):
+    """A committed DSCM's three checkpoints (``dscm_checkpoint_paths``),
+    restored once: the HVAE's config, the flax PGM and
     predictor, the EMA trees (numpy; the decoder unstacked), the
     ``checkpoint_meta`` of each and the HVAE's best ELBO."""
     from causal_gen_tpu.cli.train_cf import build_pgm_from_ckpt
-    from causal_gen_tpu.train.checkpoint import load_checkpoint
     from causal_gen_tpu_torch.convert import checkpoint_meta, unstack_decoder
 
-    paths = {k: f"{ckpt_dir}/{k}/checkpoint" for k in ("vae", "pgm", "aux")}
-    jcfg, vstate, extra = load_checkpoint(paths["vae"])
+    paths = dscm_checkpoint_paths(ckpt_dir)
+    jcfg, vstate, extra = load_vae_checkpoint(paths["vae"])
     _, jpgm, pstate = build_pgm_from_ckpt(paths["pgm"], False)
     _, jpred, astate = build_pgm_from_ckpt(paths["aux"], True)
     trees = {k: to_numpy(s.ema_params) for k, s in
              (("vae", vstate), ("pgm", pstate), ("aux", astate))}
     trees["vae"] = unstack_decoder(trees["vae"])
-    metas = {k: checkpoint_meta(p) for k, p in paths.items()}
+    metas = {k: checkpoint_meta(p) for k, p in paths.items() if k != "vae"}
     return jcfg, jpgm, jpred, trees, metas, float(extra.get("best_loss", 0.0))
 
 
 @functools.cache
-def flagship_dscm_pair(ckpt_dir: str, dtype: str):
-    """A committed DSCM (``<ckpt_dir>/{vae,pgm,aux}/checkpoint``) on both
+def flagship_dscm_pair(ckpt_dir, dtype: str):
+    """A committed DSCM (``dscm_checkpoint_paths(ckpt_dir)``) on both
     sides in ``dtype``: the JAX DSCM as cli/train_cf.py builds it, with its
     trainable and frozen trees, and the port's DSCM on the CPU from the
     converted trees, loaded with ``strict=True``. The JAX HVAE runs unrolled
@@ -403,7 +447,8 @@ def flagship_dscm_pair(ckpt_dir: str, dtype: str):
     jcfg = jcfg.replace(dtype=dtype, stage_scan=False)
     jdscm = JDSCM(cfg=jcfg, pgm=jpgm, predictor=jpred, vae=JHVAE(cfg=jcfg),
                   elbo_constraint=eps)
-    tcfg = config_from_hparams(f"{ckpt_dir}/vae/checkpoint.meta.json").replace(dtype=dtype)
+    tcfg = config_from_hparams(vae_config_path(dscm_checkpoint_paths(ckpt_dir)["vae"]))
+    tcfg = tcfg.replace(dtype=dtype)
     tdscm = build_dscm(tcfg, metas["pgm"]["config"], metas["aux"]["config"],
                        dscm_state_dicts(trees["vae"], trees["pgm"], trees["aux"]),
                        device="cpu", elbo_constraint=eps)
@@ -411,7 +456,7 @@ def flagship_dscm_pair(ckpt_dir: str, dtype: str):
     return jdscm, jdscm.init_trainable(trees["vae"]), frozen, tdscm
 
 
-def jax_float64_forward(ckpt_dir: str, obs: Dict[str, np.ndarray], do: Dict[str, np.ndarray],
+def jax_float64_forward(ckpt_dir, obs: Dict[str, np.ndarray], do: Dict[str, np.ndarray],
                         factual_only: bool = False) -> Dict[str, Any]:
     """The JAX package's DSCM.forward of a committed DSCM in float64, or with
     ``factual_only`` just its factual HVAE pass (elbo, nll, kl): the float32
@@ -456,7 +501,7 @@ def jax_float64_forward(ckpt_dir: str, obs: Dict[str, np.ndarray], do: Dict[str,
 _JAX_FLOAT64: Dict[tuple, Dict[str, Any]] = {}
 
 
-def flagship_forward_check(monkeypatch, ckpt_dir: str, dtype: str, obs: Dict[str, np.ndarray],
+def flagship_forward_check(monkeypatch, ckpt_dir, dtype: str, obs: Dict[str, np.ndarray],
                            do: Dict[str, np.ndarray], past_limit: int = 0) -> None:
     """The port's DSCM.forward of a committed DSCM against the JAX package's
     on ``obs`` (NHWC x, PGM-space parents) under ``do``, with the same
@@ -545,3 +590,109 @@ def flagship_forward_check(monkeypatch, ckpt_dir: str, dtype: str, obs: Dict[str
         p, j = ((e.mean() if q is None else e.flatten().quantile(q)).item()
                 for e in (port_err, jax_err))
         assert p <= 1.25 * j + (2.0 ** -8 if bf16 else 1e-6), (q, p, j)
+
+
+def synth_pgm_obs(dataset: str, n: int, res: int, seed: int) -> Dict[str, np.ndarray]:
+    """A batch of a dataset's PGM variables in PGM space (binary 0/1 (n, 1),
+    continuous in (-0.8, 0.8), one-hots) and an NHWC image in [-1, 1]."""
+    rng = np.random.default_rng(seed)
+    cont = lambda: rng.uniform(-0.8, 0.8, (n, 1)).astype(np.float32)  # noqa: E731
+    binary = lambda: rng.integers(0, 2, (n, 1)).astype(np.float32)  # noqa: E731
+    onehot = lambda k: np.eye(k, dtype=np.float32)[rng.integers(0, k, n)]  # noqa: E731
+    if dataset == "morphomnist":
+        obs = {"thickness": cont(), "intensity": cont(), "digit": onehot(10)}
+    elif dataset == "cmnist":
+        obs = {"digit": onehot(10), "colour": onehot(10)}
+    elif dataset == "ukbb":
+        obs = {"sex": binary(), "mri_seq": binary(), "age": cont(), "brain_volume": cont(),
+               "ventricle_volume": cont()}
+    elif dataset == "mimic":
+        obs = {"sex": binary(), "age": cont(), "race": onehot(3), "finding": binary()}
+    else:
+        raise KeyError(dataset)
+    channels = 3 if dataset == "cmnist" else 1
+    obs["x"] = rng.uniform(-1, 1, (n, res, res, channels)).astype(np.float32)
+    return obs
+
+
+def pgm_pair(dataset: str, role: str, res: int = 32, seed: int = 0, n: int = 6):
+    """A dataset's PGM on both sides with the same random parameters: the
+    flax module and its numpy tree, the port's module (CPU) loaded from it,
+    and a batch from ``synth_pgm_obs``. ``role``: "pgm" (the SCM's nets, as
+    sup_pgm initialises it), "aux" (the predictors, as sup_aux initialises
+    them) or "semi" (both, as semi_sup's ``init_all``). Every leaf is drawn
+    anew from a seeded stream (kernels N(0, 1/fan_in), the rest their init
+    + 0.5 N(0, 1)), so no zero-initialised logit, spline or bias hides a
+    path. The port's Morpho-MNIST predictor holds the SCM net too, which
+    the JAX aux tree lacks: it loads with that net missing."""
+    from causal_gen_tpu.pgm.flow_pgm import PGM_REGISTRY as JREG
+    from causal_gen_tpu_torch.pgm.flow_pgm import PGM_REGISTRY as TREG
+
+    obs = synth_pgm_obs(dataset, n, res, seed)
+    attrs = {k: jnp.asarray(v) for k, v in obs.items() if k != "x"}
+    x = jnp.asarray(obs["x"])
+    predictors = role != "pgm"
+    kw = {"input_res": res} if dataset != "mimic" else {}
+    jpgm = JREG[dataset](setup_predictors=predictors, **kw)
+    key = jax.random.PRNGKey(seed)
+    rngs = {"params": key, "sample": key, "dropout": key}
+    if role == "pgm":
+        tree = jpgm.init(rngs, attrs, method=jpgm.svi_logprob)["params"]
+    elif role == "aux":
+        tree = jpgm.init(rngs, x, method=jpgm.anticausal_logprob, **attrs)["params"]
+    else:
+        tree = jpgm.init(rngs, x, attrs, method=jpgm.init_all)["params"]
+    rng = np.random.default_rng(seed + 1000)
+
+    def leaf(path, a):
+        a = np.asarray(a, np.float32)
+        if path[-1].key == "kernel":
+            return (rng.standard_normal(a.shape) / np.sqrt(np.prod(a.shape[:-1]))
+                    ).astype(np.float32)
+        return (a + 0.5 * rng.standard_normal(a.shape)).astype(np.float32)
+
+    tree = to_numpy(jax.tree_util.tree_map_with_path(leaf, tree))
+    extra = {"scm_nets": True} if role == "semi" and dataset in ("ukbb", "mimic") else {}
+    tpgm = TREG[dataset](setup_predictors=predictors, device="cpu",
+                         **({} if dataset == "mimic" else {"input_res": res}), **extra)
+    if dataset == "morphomnist" and role == "aux":
+        load_jax_params(tpgm, tree, allow_missing="intensity_net")
+    else:
+        tpgm.load_state_dict(params_from_jax(tree), strict=True)
+    return jpgm, tree, tpgm, obs
+
+
+class JaxDraws:
+    """Replacements for ``jax.random.normal``, ``uniform``, ``gumbel`` and
+    ``categorical``: standard normals, U[0, 1) draws, standard Gumbels and,
+    for ``categorical``, argmax(logits + g) with g a standard Gumbel, all
+    from one seeded numpy stream and recorded (numpy) in draw order. Under
+    ``jax.jit`` they draw once, at trace time."""
+
+    def __init__(self, seed: int):
+        self.rng = np.random.default_rng(seed)
+        self.draws: List[np.ndarray] = []
+
+    def _keep(self, a, dtype=jnp.float32):
+        self.draws.append(np.asarray(a, np.float32))
+        return jnp.asarray(self.draws[-1], dtype)
+
+    def normal(self, key, shape=(), dtype=jnp.float32, *a, **k):
+        return self._keep(self.rng.standard_normal(shape), dtype)
+
+    def uniform(self, key, shape=(), dtype=jnp.float32, *a, **k):
+        return self._keep(self.rng.uniform(0.0, 1.0, shape), dtype)
+
+    def gumbel(self, key, shape=(), dtype=jnp.float32, *a, **k):
+        return self._keep(self.rng.gumbel(size=shape), dtype)
+
+    def categorical(self, key, logits, axis=-1, shape=None):
+        return jnp.argmax(logits + self._keep(self.rng.gumbel(size=logits.shape)), axis=axis)
+
+
+def patch_jax_draws(monkeypatch, seed: int, *names: str) -> JaxDraws:
+    """``JaxDraws`` in place of the ``jax.random`` functions ``names``."""
+    rec = JaxDraws(seed)
+    for name in names:
+        monkeypatch.setattr(jax.random, name, getattr(rec, name))
+    return rec
