@@ -6,13 +6,14 @@ explicit ``torch.Generator`` or an injected ``noise=`` tensor. Committed flax
 checkpoints convert with ``convert.py`` (numpy trees in, ``state_dict``s
 out). The TPU kernels on the ported paths (the Morpho-MNIST counterfactual
 forward, the HVAE train step, sampling at a temperature, the ukbb192 and
-ukbb64 slices and the mimic192 counterfactual forward) are CUDA C++ kernels
-built with ``nvcc`` on first use: ``fused_sample_kl`` and its
+ukbb64 slices, the mimic192 counterfactual forward and the counterfactual
+fine-tune) are CUDA C++ kernels built with ``nvcc`` on first use: ``fused_sample_kl`` and its
 backward (``csrc/sample_kl.cu``), the DMoL loss, forward and backward
 (``csrc/dmol_loss.cu``), the DMoL sampler (``csrc/dmol_sample.cu``) and the
 fused light block (``csrc/fused_block.cu``).
 
-The package imports ``torch`` and ``numpy`` only: never ``jax``, ``flax``,
+The package imports ``torch``, ``numpy`` and, for the morphometric
+measurements (``eval/morphometrics.py``), ``scipy``: never ``jax``, ``flax``,
 ``orbax`` or ``causal_gen_tpu``.
 """
 

@@ -13,7 +13,11 @@ decoder blocks on a leading axis under ``decoder/run_<start>/block``;
 ``causal_gen_tpu/models/hvae.py::migrate_decoder_params``). A DSCM's three
 trees (HVAE, PGM, predictor) with their checkpoints' configs go into one
 ``torch.save`` file (``save_converted``) that ``load_converted`` builds on
-the card from, with ``strict=True`` loads.
+the card from, with ``strict=True`` loads; ``save_mechanism_checkpoints``
+writes them as the port's own checkpoints instead, which ``cli/train_cf.py``
+and ``cli/evaluate.py`` read, and ``cf_state_from_jax`` carries a JAX CF
+checkpoint's state (the VAE, λ, their EMA, both optax Adam states) into a
+``pgm/train_cf.py::CFTrainState``.
 
 The port's modules carry flax's names, so a key maps by its path:
 ``decoder/blocks_0/prior/Conv_0/kernel`` -> ``decoder.blocks_0.prior.Conv_0.weight``.
@@ -170,7 +174,7 @@ def build_pgm(pgm_cfg: Mapping[str, Any], setup_predictors: bool,
         if pgm_cfg["dataset"].startswith(prefix):
             kw = {k: tuple(pgm_cfg[k]) if k == "widths" else pgm_cfg[k]
                   for k in PGM_FIELDS[prefix]}
-            if semi and prefix in ("ukbb", "mimic"):
+            if semi and prefix in ("ukbb", "mimic", "morphomnist"):
                 kw["scm_nets"] = True
             return cls(**kw, setup_predictors=setup_predictors or semi, device=device,
                        generator=generator)
@@ -213,3 +217,86 @@ def load_converted(path: str, device: "str | torch.device" = "cuda"):
     return build_dscm(Config.from_dict(cfgs["vae"]), cfgs["pgm"], cfgs["aux"],
                       tuple(payload["state_dicts"][r] for r in ROLES), device,
                       elbo_constraint=float(payload["vae_extra"].get("best_loss", 0.0)))
+
+
+def _load_adam(opt: torch.optim.Optimizer, names, mu: Mapping[str, torch.Tensor],
+               nu: Mapping[str, torch.Tensor], count) -> None:
+    """``opt`` (one group, its parameters named ``names`` in order) takes
+    optax's Adam state: ``mu``, ``nu`` and ``count`` become ``exp_avg``,
+    ``exp_avg_sq`` and ``step``."""
+    sd = opt.state_dict()
+    sd["state"] = {i: {"step": torch.tensor(float(np.asarray(count)), dtype=torch.float32),
+                       "exp_avg": mu[n].clone(), "exp_avg_sq": nu[n].clone()}
+                   for i, n in enumerate(names)}
+    opt.load_state_dict(sd)
+
+
+def cf_state_from_jax(tree: Mapping[str, Any], state):
+    """In place: a ``pgm/train_cf.py::CFTrainState`` takes a JAX CF
+    checkpoint's state, given as the numpy tree of its Orbax restore
+    (``tests/torch_parity.py::flax_checkpoint_numpy(path, "cf")``):
+    ``trainable`` and ``ema_trainable`` (the VAE, decoder unstacked, with
+    ``strict=True`` loads, and λ), the VAE's AdamW state
+    (``opt_state[0]``) and λ's (``lagrange_opt_state[1][0]``, behind the
+    ``scale(-1)``; its moments are those of -grad, as ``maximize=True``
+    keeps them), and the counters. A run resumed from it takes the JAX
+    run's next update.
+
+    An eval-grade export (``tools/export_eval_ckpt.py --kind cf``: the
+    flagships' CF trees) keeps ``ema_trainable`` alone, the other trees
+    empty: the EMA loads into both the model and its EMA, the optimizers
+    stay fresh, the counters are the tree's. Returns ``state``."""
+    def vae_sd(t):
+        return params_from_jax(unstack_decoder(t))
+
+    eval_grade = not tree["trainable"]
+    trees = ((state.dscm, tree["ema_trainable" if eval_grade else "trainable"]),
+             (state.ema, tree["ema_trainable"]))
+    for d, t in trees:
+        d.vae.load_state_dict(vae_sd(t["vae"]), strict=True)
+        with torch.no_grad():
+            d.lmbda.copy_(torch.tensor(np.asarray(t["lmbda"], np.float32).reshape(1)))
+    if not eval_grade:
+        adam = tree["opt_state"][0]
+        _load_adam(state.optimizer, [n for n, _ in state.dscm.vae.named_parameters()],
+                   vae_sd(adam["mu"]), vae_sd(adam["nu"]), adam["count"])
+        l_adam = tree["lagrange_opt_state"][1][0]
+        _load_adam(state.lagrange_optimizer, ["lmbda"],
+                   {"lmbda": torch.tensor(np.asarray(l_adam["mu"], np.float32))},
+                   {"lmbda": torch.tensor(np.asarray(l_adam["nu"], np.float32))},
+                   l_adam["count"])
+    state.step, state.ema_updates, state.skipped = (int(tree[k]) for k in
+                                                    ("step", "ema_updates", "skipped"))
+    return state
+
+
+def save_mechanism_checkpoints(directory: str, trees: Mapping[str, Mapping[str, Any]],
+                               metas: Mapping[str, Mapping[str, Any]]) -> Dict[str, str]:
+    """A DSCM's three JAX checkpoints as the port's own, for
+    ``cli/train_cf.py`` and ``cli/evaluate.py``: ``<directory>/{vae,pgm,aux}/
+    checkpoint`` (``trees`` and ``metas`` as ``save_converted`` takes them).
+    The EMA tree goes in as both the parameters and their EMA, beside fresh
+    optimizer states. Returns the three paths."""
+    import os
+
+    from causal_gen_tpu_torch.models.simple_vae import build_vae
+    from causal_gen_tpu_torch.pgm.train_pgm import PGMConfig, init_pgm_state, save_pgm_checkpoint
+    from causal_gen_tpu_torch.train.checkpoint import state_payload, write_payload
+    from causal_gen_tpu_torch.train.state import init_train_state
+
+    sds = dict(zip(ROLES, dscm_state_dicts(*(trees[r] for r in ROLES))))
+    paths = {r: os.path.join(os.path.abspath(directory), r, "checkpoint") for r in ROLES}
+    for p in paths.values():
+        os.makedirs(os.path.dirname(p), exist_ok=True)
+    cfg = Config.from_dict(dict(metas["vae"]["config"]))
+    vae = build_vae(cfg, device="cpu")
+    vae.load_state_dict(sds["vae"], strict=True)
+    write_payload(paths["vae"], state_payload(init_train_state(cfg, vae)),
+                  {"config": cfg.to_dict(), "extra": dict(metas["vae"].get("extra", {}))})
+    for role in ("pgm", "aux"):
+        pcfg = PGMConfig.from_dict(dict(metas[role]["config"]))
+        mod = build_pgm(pcfg.to_dict(), pcfg.setup != "sup_pgm", "cpu")
+        mod.load_state_dict(sds[role], strict=True)
+        save_pgm_checkpoint(paths[role], pcfg, init_pgm_state(pcfg, mod),
+                            extra=dict(metas[role].get("extra", {})))
+    return paths

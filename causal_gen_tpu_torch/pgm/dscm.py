@@ -17,21 +17,36 @@ module does. Semantics kept from the JAX package:
 - with ``do_mask`` the PGM step is ``counterfactual_dense``: each row takes
   its own intervention pattern in one pass (dscm.py:122-177).
 
-The soft-morphometry penalty (ops/soft_morph.py) comes with the
-counterfactual-training slice. The image mechanism is an ``HVAE`` or a
-``SimpleVAE``: both have the mechanism API (forward, abduct,
+- the soft-morphometry penalty (ops/soft_morph.py, dscm.py:219-242):
+  ``thickness_weight`` x the mean |soft thickness of cf_x - the intervened
+  thickness| and ``intensity_weight`` x the same of the intensity, in the
+  attributes' own units, the targets detached; 0 unless a weight is > 0
+  and the parents have the attribute (Morpho-MNIST);
+- ``remat``: each HVAE pass (the factual ELBO, the abduction, both
+  decodes) and the predictor's pass run under ``torch.utils.checkpoint``
+  and are recomputed in the backward, as ``jax.checkpoint`` wraps them
+  (dscm.py:141-210). The recompute replays the pass's draws: the injected
+  ones it took from ``noise`` and the state of ``generator`` it began
+  with (``_rematerialised``), since checkpoint restores only PyTorch's
+  default generators and K1 takes its Philox seed from ``generator``.
+
+``lmbda``, the Lagrange multiplier, is a parameter that takes a gradient:
+CF training ascends on it (pgm/train_cf.py). The image mechanism is an
+``HVAE`` or a ``SimpleVAE``: both have the mechanism API (forward, abduct,
 forward_latents).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, Optional
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import torch
 from torch import Tensor
+from torch.utils.checkpoint import checkpoint
 
 from causal_gen_tpu_torch.config import Config
-from causal_gen_tpu_torch.utils.normalization import get_attr_max_min
+from causal_gen_tpu_torch.ops.soft_morph import soft_intensity, soft_thickness
+from causal_gen_tpu_torch.utils.normalization import MORPHOMNIST_MIN_MAX, get_attr_max_min
 
 # log-standardization constants of the UKBB training set
 # (reference dscm.py:108-117; load-bearing for checkpoint compatibility)
@@ -65,22 +80,64 @@ def vae_preprocess(cfg: Config, pa: Dict[str, Tensor]) -> Tensor:
     return torch.cat(cols, dim=1).to(torch.float32)
 
 
+def _recording(noise: Iterator[Tensor], taken: List[Tensor]) -> Iterator[Tensor]:
+    for d in noise:
+        taken.append(d)
+        yield d
+
+
+def _rematerialised(fn: Callable, noise: Optional[Iterator[Tensor]],
+                    generator: Optional[torch.Generator], *args):
+    """``fn(*args, noise=, generator=)`` under ``torch.utils.checkpoint``
+    (non-reentrant): its activations are dropped and recomputed in the
+    backward. The recompute takes the same draws as the first run: the
+    injected draws that run took from ``noise``, and ``generator`` set back
+    to the state that run began with (then to where it was)."""
+    start = None if generator is None else generator.get_state()
+    taken: List[Tensor] = []
+    runs = [0]
+
+    def run(*a):
+        runs[0] += 1
+        if runs[0] == 1:
+            return fn(*a, noise=None if noise is None else _recording(noise, taken),
+                      generator=generator)
+        now = None if generator is None else generator.get_state()
+        if generator is not None:
+            generator.set_state(start)
+        try:
+            return fn(*a, noise=None if noise is None else iter(taken), generator=generator)
+        finally:
+            if generator is not None:
+                generator.set_state(now)
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
 class DSCM:
     """Merged-mechanism model (reference dscm.py:16-95): a PGM over the
     attributes, the anticausal predictor and the HVAE, plus the Lagrange
     multiplier ``lmbda``. The PGM and predictor are frozen, as the reference
-    freezes them (dscm.py:21-24) and the JAX package stops their gradients."""
+    freezes them (dscm.py:21-24) and the JAX package stops their gradients;
+    the HVAE's parameters and ``lmbda`` are what CF training updates."""
 
     def __init__(self, cfg: Config, pgm, predictor, vae, elbo_constraint: float = 0.0,
-                 lmbda_init: float = 0.0, damping: float = 100.0):
+                 lmbda_init: float = 0.0, damping: float = 100.0,
+                 thickness_weight: float = 0.0, intensity_weight: float = 0.0,
+                 thickness_calib: Tuple[float, float] = (1.0, 0.0), remat: bool = False):
         self.cfg = cfg
         self.pgm = pgm.requires_grad_(False)
         self.predictor = predictor.requires_grad_(False)
         self.vae = vae
         self.elbo_constraint = elbo_constraint
         self.damping = damping
+        self.thickness_weight = thickness_weight
+        self.intensity_weight = intensity_weight
+        self.thickness_calib = tuple(thickness_calib)
+        self.remat = remat
         device = next(vae.parameters()).device
-        self.lmbda = torch.full((1,), lmbda_init, dtype=torch.float32, device=device)
+        self.lmbda = torch.nn.Parameter(
+            torch.full((1,), lmbda_init, dtype=torch.float32, device=device))
 
     def forward(
         self,
@@ -110,11 +167,32 @@ class DSCM:
         cfg = self.cfg
         beta = cfg.beta if beta is None else beta
         noise = None if noise is None else iter(noise)
+        vae = self.vae
         x = obs["x"]
         pa = {k: v for k, v in obs.items() if k != "x"}
         _pa = vae_preprocess(cfg, pa)
 
-        vae_out = self.vae(x, _pa, beta=beta, noise=noise, generator=generator, train=False)
+        def fact_fn(x_, pa_, noise, generator):
+            return vae(x_, pa_, beta=beta, noise=noise, generator=generator, train=False)
+
+        def abduct_fn(x_, pa_, noise, generator):
+            zs = vae.abduct(x_, pa_, noise=noise, generator=generator, t=t_abduct)
+            # cond_prior abduction returns {z, q_loc, q_logscale} dicts
+            # (causal_gen_tpu/pgm/dscm.py:181-184); the decodes take the z
+            return [z["z"] if isinstance(z, dict) else z for z in zs]
+
+        def decode_fn(zs_, pa_, noise, generator):
+            return vae.forward_latents(zs_, pa_, noise=noise, generator=generator)
+
+        def aux_fn(cf_x_, cf_pa_, noise, generator):
+            return self.predictor.anticausal_logprob(cf_x_, **cf_pa_)
+
+        def call(fn, *args):
+            if self.remat:
+                return _rematerialised(fn, noise, generator, *args)
+            return fn(*args, noise=noise, generator=generator)
+
+        vae_out = call(fact_fn, x, _pa)
 
         cf_sum = torch.zeros_like(x)
         cf_sq = torch.zeros_like(x)
@@ -126,14 +204,9 @@ class DSCM:
             else:
                 cf_pa = self.pgm.counterfactual(pa, do, generator=generator, noise=noise)
             _cf_pa = vae_preprocess(cfg, cf_pa)
-            zs = self.vae.abduct(x, _pa, noise=noise, generator=generator, t=t_abduct)
-            # cond_prior abduction returns {z, q_loc, q_logscale} dicts
-            # (causal_gen_tpu/pgm/dscm.py:181-184); the decodes take the z
-            zs = [z["z"] if isinstance(z, dict) else z for z in zs]
-            cf_loc, cf_scale = self.vae.forward_latents(zs, _cf_pa, noise=noise,
-                                                        generator=generator)
-            rec_loc, rec_scale = self.vae.forward_latents(zs, _pa, noise=noise,
-                                                          generator=generator)
+            zs = call(abduct_fn, x, _pa)
+            cf_loc, cf_scale = call(decode_fn, zs, _cf_pa)
+            rec_loc, rec_scale = call(decode_fn, zs, _pa)
             u = (x - rec_loc) / torch.clamp(rec_scale, min=1e-12)
             cf_x = torch.clamp(cf_loc + cf_scale * u, -1.0, 1.0)
             cf_sum = cf_sum + cf_x
@@ -146,13 +219,29 @@ class DSCM:
             # variance is not negative
             var_cf_x = ((cf_sq - cf_sum**2 / cf_particles) / cf_particles).detach().clamp(min=0.0)
         cfs = {"x": cf_x_mean, **cf_pa}
+        bs = x.shape[0]
 
-        aux_lps = self.predictor.anticausal_logprob(cfs["x"], **cf_pa)
-        aux_loss = -sum(torch.sum(v) for v in aux_lps.values()) / x.shape[0]
+        aux_lps = call(aux_fn, cfs["x"], cf_pa)
+        aux_loss = -sum(torch.sum(v) for v in aux_lps.values()) / bs
         # Lagrangian with damping (dscm.py:85-88)
         constraint = self.elbo_constraint - vae_out["elbo"]
         loss = aux_loss - torch.sum((self.lmbda - self.damping * constraint.detach()) * constraint)
 
+        # the soft-morphometry penalty, in the attributes' units (NCHW: channel 0)
+        morph_loss = torch.zeros((), device=x.device)
+        if self.thickness_weight > 0 and "thickness" in cf_pa:
+            lo, hi = MORPHOMNIST_MIN_MAX["thickness"]
+            tgt = (cf_pa["thickness"].reshape(bs) + 1) / 2 * (hi - lo) + lo
+            est = soft_thickness((cf_x_mean[:, 0] + 1.0) / 2.0, calib=self.thickness_calib)
+            morph_loss = morph_loss + self.thickness_weight * (est - tgt.detach()).abs().mean()
+        if self.intensity_weight > 0 and "intensity" in cf_pa:
+            lo, hi = MORPHOMNIST_MIN_MAX["intensity"]
+            tgt = (cf_pa["intensity"].reshape(bs) + 1) / 2 * (hi - lo) + lo
+            est = soft_intensity((cf_x_mean[:, 0] + 1.0) * 127.5)
+            morph_loss = morph_loss + self.intensity_weight * (est - tgt.detach()).abs().mean()
+        loss = loss + morph_loss
+
         out = dict(vae_out)
-        out.update({"loss": loss, "aux_loss": aux_loss, "cfs": cfs, "var_cf_x": var_cf_x})
+        out.update({"loss": loss, "aux_loss": aux_loss, "cfs": cfs, "var_cf_x": var_cf_x,
+                    "morph_loss": morph_loss})
         return out

@@ -15,8 +15,8 @@ PGM (the SCM's nets, as a ``sup_pgm`` checkpoint holds them), with
 parameters, as a ``sup_aux`` checkpoint holds them), and with both
 ``setup_predictors`` and ``scm_nets`` the semi-supervised model (both, as a
 ``semi_sup`` checkpoint holds them), so that converted checkpoints load with
-``strict=True``. ``MorphoMNISTPGM`` builds its SCM net in every role;
-``ColourMNISTPGM`` has no SCM net.
+``strict=True``; ``MorphoMNISTPGM`` likewise (its SCM net is the
+intensity flow's ``intensity_net``). ``ColourMNISTPGM`` has no SCM net.
 
 ``guide_sample`` fills the unobserved sites from the predictors q and
 returns their log q, for semi-supervised training. ``noise[site]`` is a
@@ -298,12 +298,14 @@ class MorphoMNISTPGM(BasePGM):
     def __init__(self, widths: Tuple[int, ...] = (32, 32), std_fixed: float = 0.0,
                  setup_predictors: bool = True, input_res: int = 32,
                  input_channels: int = 1, device: "str | torch.device" = "cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 scm_nets: Optional[bool] = None):
         super().__init__()
         self.digit_logits = nn.Parameter(torch.zeros(1, 10))
         _spline_params(self, "thickness")
-        # thickness -> intensity conditional affine (flow_pgm.py:331-336, GELU)
-        self.intensity_net = DenseNN(1, widths, (1, 1), activation="gelu")
+        if not setup_predictors if scm_nets is None else scm_nets:
+            # thickness -> intensity conditional affine (flow_pgm.py:331-336, GELU)
+            self.intensity_net = DenseNN(1, widths, (1, 1), activation="gelu")
         self.setup_predictors = setup_predictors
         if setup_predictors:
             kw = dict(input_res=input_res, width=8, input_channels=input_channels)

@@ -47,14 +47,8 @@ from torch import Tensor, nn
 from causal_gen_tpu_torch.train.checkpoint import write_payload
 from causal_gen_tpu_torch.train.state import clip_by_global_norm
 from causal_gen_tpu_torch.utils.ema import ema_update
-from causal_gen_tpu_torch.utils.metrics import (
-    accuracy_binary,
-    accuracy_onehot,
-    mae,
-    roc_auc_binary,
-    roc_auc_ovr_macro,
-)
-from causal_gen_tpu_torch.utils.normalization import MORPHOMNIST_MIN_MAX, get_attr_max_min
+from causal_gen_tpu_torch.utils.metrics import attribute_metrics
+from causal_gen_tpu_torch.utils.normalization import get_attr_max_min
 
 log = logging.getLogger(__name__)
 
@@ -300,41 +294,8 @@ def pgm_eval_metrics(cfg: PGMConfig, model: nn.Module, loader,
         for k in preds:
             targets[k].append(batch[k].cpu().numpy())
             preds[k].append(out[k].cpu().numpy())
-    P = {k: np.concatenate(v) for k, v in preds.items()}
-    T = {k: np.concatenate(v) for k, v in targets.items()}
-    # ROC-AUC and accuracy of the binary and categorical variables, the MAE
-    # of the continuous ones with their normalisation undone
-    stats: Dict[str, float] = {}
-    for k in model.dag_variables:
-        if "ukbb" in cfg.dataset:
-            if k in ("mri_seq", "sex"):
-                stats[k + "_rocauc"] = roc_auc_binary(T[k], P[k])
-                stats[k + "_acc"] = accuracy_binary(T[k], P[k])
-            else:
-                _max, _min = get_attr_max_min(k)
-                p = (P[k] + 1) / 2 * (_max - _min) + _min
-                t = (T[k] + 1) / 2 * (_max - _min) + _min
-                stats[k + "_mae"] = mae(t, p) / (1000.0 if "volume" in k else 1.0)
-        elif cfg.dataset == "morphomnist":
-            if k == "digit":
-                stats[k + "_acc"] = accuracy_onehot(T[k], P[k])
-            else:
-                _min, _max = MORPHOMNIST_MIN_MAX[k]
-                p = ((P[k] + 1) / 2) * (_max - _min) + _min
-                t = ((T[k] + 1) / 2) * (_max - _min) + _min
-                stats[k + "_mae"] = mae(t, p)
-        elif cfg.dataset == "cmnist":
-            stats[k + "_acc"] = accuracy_onehot(T[k], P[k])
-        elif "mimic" in cfg.dataset:
-            if k in ("sex", "finding"):
-                stats[k + "_rocauc"] = roc_auc_binary(T[k], P[k])
-                stats[k + "_acc"] = accuracy_binary(T[k], P[k])
-            elif k == "age":
-                stats[k + "_mae"] = mae((T[k] + 1) * 50, (P[k] + 1) * 50)
-            elif k == "race":
-                stats[k + "_acc"] = accuracy_onehot(T[k], P[k])
-                stats[k + "_rocauc"] = roc_auc_ovr_macro(T[k], P[k])
-    return stats
+    return attribute_metrics(cfg.dataset, {k: np.concatenate(v) for k, v in preds.items()},
+                             {k: np.concatenate(v) for k, v in targets.items()})
 
 
 def save_pgm_checkpoint(path: str, cfg: PGMConfig, state: PGMTrainState,

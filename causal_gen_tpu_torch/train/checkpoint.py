@@ -5,7 +5,8 @@ trainer.py:156-168). Each save is ``<dir>/step_<n>.pt`` (``torch.save`` of the
 parameters, the EMA parameters, AdamW's and the schedule's state and the three
 counters) beside ``step_<n>.pt.meta.json`` (the config and extras, as JSON;
 the stored config is authoritative on reload). The writer keeps the newest
-``max_to_keep`` saves plus the best one (lowest metric), and points the
+``max_to_keep`` saves plus the best one (lowest metric, which
+``update_metric`` may set after the save), and points the
 ``<dir>/checkpoint`` links at the best. It writes synchronously: a save at
 the end of an evaluation costs little next to the epoch. It does not read
 Orbax checkpoints of the JAX package.
@@ -99,9 +100,26 @@ class CheckpointWriter:
                               "metric": None if metric is None else float(metric)})
         self._gc()
         self._update_link()
+        self._write_index()
+        return path
+
+    def update_metric(self, metric: float, path: Optional[str] = None) -> None:
+        """Set the metric of a save made before its metric existed (the
+        newest, or the one at ``path``) and point the links at the best
+        again: the CF trainer saves before its long valid sweeps, then
+        feeds back the sweep's loss, so that the best save is kept by it
+        (causal_gen_tpu/train/checkpoint.py:127)."""
+        target = self._entries[-1] if path is None else next(
+            (e for e in self._entries if e["path"] == path), None)
+        if target is None:
+            return
+        target["metric"] = float(metric)
+        self._write_index()
+        self._update_link()
+
+    def _write_index(self) -> None:
         with open(os.path.join(self.directory, "index.json"), "w") as f:
             json.dump({"entries": self._entries}, f, indent=2)
-        return path
 
 
 def load_checkpoint(path: str) -> Tuple[Config, Dict[str, Any], Dict[str, Any]]:

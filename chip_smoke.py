@@ -133,7 +133,24 @@ Phases, one progress line each:
                off and on: three train steps card against CPU (draws and the
                dropout options injected), DSCM.forward at bs 32 and
                sample(t=0.7) card against CPU and timed; no kernel launched
-  22. turns  - with --parent DIR (an earlier tree of the repository, unpacked):
+  22. cf_train - counterfactual fine-tuning (pgm/train_cf.py) at the CF
+               configurations of checkpoints/ukbb192_flagship/cf (bf16, bs 16,
+               beta 5, wd 0.05, eps 2.3868), mimic192_flagship/cf (bs 16,
+               beta 9, wd 0.1) and cf_morphomnist/final_cf_morph_tw25
+               (morphomnist, bs 32, the soft-morphometry terms), seeded
+               weights, grad_skip lifted: K1 and K1-bwd against their plain
+               versions at the ukbb192 and mimic192 updates' shapes; card
+               against the CPU plain path in float32 (ukbb192 bs 2 once,
+               morphomnist twice, each update from one state: terms 1e-4 rel,
+               lambda 1e-5, parameters and EMA within 2 lr); remat on against
+               off on the card with one generator seed (gradients within 1e-6
+               rel); the main paths with their launch counts (ukbb192 K1 +
+               K1-bwd 80 + 80, with remat 160 + 80; mimic192 76 + 76;
+               morphomnist 40 + 40; the ukbb192 eval step under
+               inference_mode K2 200 and K1 80), the median of 10 updates,
+               peak memory and the profiler; cli.train_cf on the card (1
+               epoch of 2 updates with the valid sweeps, then --resume)
+  23. turns  - with --parent DIR (an earlier tree of the repository, unpacked):
                that tree's K2 float32 kernel at every ukbb shape, K4 in both
                modes and ukbb64 forward against this tree's, in turns (parent,
                this, this, parent), each a process of its own; K4's output
@@ -1154,17 +1171,17 @@ def build_slice(cfg, device, state=None):
     return DSCM(cfg, pgm, pred, vae, elbo_constraint=1.8, lmbda_init=0.0, damping=100.0)
 
 
-def synth_obs(cfg, device):
+def synth_obs(cfg, device, n=BS, seed=SEED):
     import numpy as np
     import torch
 
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(seed)
     res = cfg.input_res
     obs = {
-        "x": rng.uniform(-1, 1, (BS, 1, res, res)),
-        "thickness": rng.uniform(-0.8, 0.8, (BS, 1)),
-        "intensity": rng.uniform(-0.8, 0.8, (BS, 1)),
-        "digit": np.eye(10)[rng.integers(0, 10, BS)],
+        "x": rng.uniform(-1, 1, (n, 1, res, res)),
+        "thickness": rng.uniform(-0.8, 0.8, (n, 1)),
+        "intensity": rng.uniform(-0.8, 0.8, (n, 1)),
+        "digit": np.eye(10)[rng.integers(0, 10, n)],
     }
     return {k: torch.tensor(v, dtype=torch.float32, device=device) for k, v in obs.items()}
 
@@ -3473,6 +3490,450 @@ def phase_entry(name):
             "skipped": state.skipped}
 
 
+# ---------------------------------------------------------------------------
+# Slice 9: counterfactual fine-tuning (stage 3) and its evaluation
+# ---------------------------------------------------------------------------
+
+# the CFConfig fields of the flagships' CF runs
+# (checkpoints/{ukbb192,mimic192}_flagship/cf/checkpoint.meta.json) and of
+# checkpoints/cf_morphomnist/final_cf_morph_tw25; grad_clip 350, the EMA
+# and lr 1e-4 are CFConfig's defaults there too
+CF_CONFIGS = {
+    "ukbb192": dict(bs=16, beta=5.0, lr=1e-4, lr_lagrange=1e-2, alpha=0.1, wd=0.05,
+                    betas=(0.9, 0.9), elbo_constraint=2.3868378400802612, damping=100.0),
+    "mimic192": dict(bs=16, beta=9.0, lr=1e-4, lr_lagrange=1e-2, alpha=0.1, wd=0.1,
+                     betas=(0.9, 0.9), elbo_constraint=3.0605525970458984, damping=100.0),
+    "morphomnist": dict(bs=32, beta=1.0, lr=1e-4, lr_lagrange=1e-2, wd=0.01, betas=(0.9, 0.9),
+                        elbo_constraint=0.5131167785644531, thickness_weight=2.5,
+                        intensity_weight=0.05,
+                        thickness_calib=(1.2231597663423281, 0.5294727873345971)),
+}
+CF_TIMED = 10  # updates a timed path's median is taken over
+
+
+def cf_config(name, **overrides):
+    """The CF run's configuration of ``name``. Seeded weights lie far from a
+    trained model's ELBO, where every update of the flagship's grad_skip 500
+    would be skipped: the timed and the checked paths lift it so that each
+    update is made (a skipped one costs the same forward and backward)."""
+    from causal_gen_tpu_torch.pgm.train_cf import CFConfig
+
+    return CFConfig(**{**CF_CONFIGS[name], "grad_skip": 1e30, **overrides})
+
+
+def cf_dscm(name, cf, device, dtype="bfloat16", bs=None, state=None, remat=False):
+    """The DSCM of a CF path with its CF configuration's Lagrangian, the
+    soft-morphometry terms and ``remat``: ukbb192 (UKBB FlowPGM), the
+    mimic192 flagship's (ChestPGM) or the registry's morphomnist (float32)."""
+    from causal_gen_tpu_torch.config import get_config
+
+    if name == "ukbb192":
+        d = build_ukbb(ukbb_config(dtype, bs or cf.bs), device, state)
+    elif name == "mimic192":
+        d = build_mimic(mimic_config(dtype, bs or cf.bs), device, state)
+    else:
+        d = build_slice(get_config("morphomnist", bs=bs or cf.bs), device, state)
+    d.elbo_constraint, d.damping, d.remat = cf.elbo_constraint, cf.damping, remat
+    d.thickness_weight, d.intensity_weight = cf.thickness_weight, cf.intensity_weight
+    d.thickness_calib = tuple(cf.thickness_calib)
+    return d
+
+
+def cf_obs(name, cfg, n, device, seed):
+    obs = {"ukbb192": ukbb_obs, "mimic192": mimic_obs, "morphomnist": synth_obs}[name]
+    return obs(cfg, device=device, n=n, seed=seed)
+
+
+def cf_sync(dst, src):
+    """The CF state ``dst`` (on its device) takes ``src``'s parameters, λ,
+    EMA, both optimizers' states and counters."""
+    import copy
+
+    from causal_gen_tpu_torch.pgm.train_cf import cf_state_payload, restore_cf_state
+
+    payload = cf_state_payload(src)
+    payload["opt_state"] = copy.deepcopy(payload["opt_state"])
+    payload["lagrange_opt_state"] = copy.deepcopy(payload["lagrange_opt_state"])
+    restore_cf_state(dst, payload)
+
+
+def cf_updates_card_vs_cpu(name, cf, n_updates, bs, seed):
+    """``n_updates`` CF updates in float32 (TF32 off), each made on the card
+    and on the CPU from one state (the card's synced from the CPU's before
+    each) with the same batch, dense intervention and posterior draws:
+    the forward's scalars within 1e-4 rel, λ within 1e-5 abs + rel, the
+    parameters and their EMA within 2 lr. Returns each update's errors."""
+    import numpy as np
+    import torch
+
+    from causal_gen_tpu_torch.pgm.train_cf import (TERMS, cf_train_step, dense_intervention,
+                                                    init_cf_state, random_intervention)
+
+    cpu_d = cf_dscm(name, cf, "cpu", "float32", bs)
+    gpu_d = cf_dscm(name, cf, "cuda", "float32", bs,
+                    state=state_of(cpu_d.vae, cpu_d.pgm, cpu_d.predictor))
+    sts = {"cpu": init_cf_state(cf, cpu_d), "cuda": init_cf_state(cf, gpu_d)}
+    rng = np.random.default_rng(seed)
+    dag = tuple(cpu_d.pgm.dag_variables)
+    out = []
+    for u in range(n_updates):
+        cf_sync(sts["cuda"], sts["cpu"])
+        obs = cf_obs(name, cpu_d.cfg, bs, torch.device("cpu"), seed + 1 + u)
+        do, mask = dense_intervention(dag, obs, random_intervention(rng, dag, obs))
+        noise = normals(cpu_d.cfg, bs, rng, passes=2)
+        ms = {}
+        for d, st in sts.items():
+            dv = torch.device(d)
+            m = cf_train_step(cf, st, {k: v.to(dv) for k, v in obs.items()},
+                              {k: v.to(dv) for k, v in do.items()},
+                              {k: v.to(dv) for k, v in mask.items()},
+                              noise=[[e.to(dv) for e in noise]])
+            ms[d] = {k: float(v) for k, v in m.items()}
+        torch.cuda.synchronize()
+        cpu, gpu = sts["cpu"], sts["cuda"]
+        rel = rel_errs(ms["cuda"], ms["cpu"], [k for k in TERMS if ms["cpu"][k] != 0.0])
+        lm = max(abs(gpu.dscm.lmbda.item() - cpu.dscm.lmbda.item()),
+                 abs(gpu.ema.lmbda.item() - cpu.ema.lmbda.item()))
+        perr = max((b.cpu() - a).abs().max().item() for w in ("dscm", "ema")
+                   for a, b in zip(getattr(cpu, w).vae.state_dict().values(),
+                                   getattr(gpu, w).vae.state_dict().values()))
+        bound = 2 * cf.lr + 1e-6
+        if max(rel.values()) > 1e-4 or lm > 1e-5 * (1 + abs(cpu.dscm.lmbda.item())) \
+                or perr > bound or ms["cuda"]["skipped"] or ms["cpu"]["skipped"]:
+            raise AssertionError(f"{name} CF update {u} card vs CPU: {ms}, rel {rel}, lmbda "
+                                 f"{lm:.2e}, params {perr:.2e} (2 lr {bound:.1e})")
+        out.append({"rel_err": rel, "lmbda_abs_err": lm, "params_ema_max_abs_err": perr,
+                    "grad_norm_rel_err": rel_errs(ms["cuda"], ms["cpu"], ["grad_norm"]),
+                    "card": ms["cuda"]})
+    return out
+
+
+def cf_remat_grads(name, cf, bs, seed, d=None):
+    """Forward and backward of one CF loss on the card with remat off and
+    on, the same generator seed (K1's Philox seeds and every draw come from
+    it), deterministic algorithms: the loss and every gradient (the VAE's and
+    λ's) within 1e-6 of the tensor's largest magnitude, and the generator
+    left in the same state. ``d`` is the DSCM to use (else one is built).
+    Returns the largest relative error."""
+    import numpy as np
+    import torch
+
+    from causal_gen_tpu_torch.pgm.train_cf import dense_intervention, random_intervention
+
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)  # index_add's sorted backward
+    try:
+        d = d or cf_dscm(name, cf, "cuda", bs=bs)
+        obs = cf_obs(name, d.cfg, bs, torch.device("cuda"), seed)
+        dag = tuple(d.pgm.dag_variables)
+        do, mask = dense_intervention(dag, obs, random_intervention(
+            np.random.default_rng(seed), dag, obs))
+        runs = []
+        for remat in (False, True):
+            d.remat = remat
+            params = list(d.vae.parameters()) + [d.lmbda]
+            for p in params:
+                p.grad = None
+            g = torch.Generator().manual_seed(seed)
+            reset_counts()
+            out = d.forward(obs, do, do_mask=mask, beta=cf.beta, generator=g)
+            out["loss"].backward()
+            torch.cuda.synchronize()
+            runs.append((out["loss"].item(), [torch.zeros_like(p) if p.grad is None
+                                              else p.grad.clone() for p in params],
+                         g.get_state(), read_counts()))
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.use_deterministic_algorithms(False)
+    (l0, g0, s0, c0), (l1, g1, s1, c1) = runs
+    rel = max([abs(l1 - l0) / abs(l0)] + [((b - a).abs().max() / a.abs().max().clamp(
+        min=1e-30)).item() for a, b in zip(g0, g1)])
+    if rel > 1e-6 or not torch.equal(s0, s1):
+        raise AssertionError(f"{name} remat on vs off on the card: rel err {rel:.3e}, the "
+                             f"generator's state {'the same' if torch.equal(s0, s1) else 'differs'}")
+    return {"max_rel_err": rel, "launches_off": c0, "launches_on": c1}
+
+
+def cf_timed_update(name, cf, remat, seed, d=None):
+    """The main path of a CF update at ``cf.bs``: a random single-parent
+    dense intervention from the batch, then ``cf_train_step``, with the launch
+    counts read around one update (K1 and K1-bwd on each posterior pass; with
+    remat K1 runs again in each recompute); the median of CF_TIMED updates
+    on the host clock, the peak memory and the profiler's device share.
+    ``d`` is the DSCM to use (else one is built)."""
+    import numpy as np
+    import torch
+
+    from causal_gen_tpu_torch.pgm.train_cf import (cf_train_step, dense_intervention,
+                                                    init_cf_state, random_intervention)
+
+    d = d or cf_dscm(name, cf, "cuda")
+    d.remat = remat
+    st = init_cf_state(cf, d)
+    obs = cf_obs(name, d.cfg, cf.bs, torch.device("cuda"), seed)
+    host = np.random.default_rng(seed)
+    g = torch.Generator().manual_seed(seed)
+    dag = tuple(d.pgm.dag_variables)
+
+    def update():
+        do, mask = dense_intervention(dag, obs, random_intervention(host, dag, obs))
+        return cf_train_step(cf, st, obs, do, mask, generator=g)
+
+    n_sto = len(k1_res(d.cfg))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    m = update()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = dict(dict.fromkeys(counts, 0), fused_sample_kl=(4 if remat else 2) * n_sto,
+                fused_sample_kl_bwd=2 * n_sto)
+    if counts != want or not math.isfinite(float(m["loss"])) or m["skipped"]:
+        raise AssertionError(f"{name} CF update (remat {remat}): launches {counts}, expected "
+                             f"{want}; {m}")
+    for _ in range(2):
+        update()
+    times = []
+    for _ in range(CF_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        update()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ms = statistics.median(times)
+    out = {"launches": counts, "update_ms": ms, "update_ms_all": times,
+           "cf_samples_per_s": cf.bs / ms * 1e3, "peak_mem_gb": peak,
+           "metrics_first": {k: float(v) for k, v in m.items()}, "steps": st.step}
+    log("cf_train", f"{name} CF update bs {cf.bs}{' remat' if remat else ''}: launches K1 "
+                    f"{counts['fused_sample_kl']} + K1-bwd {counts['fused_sample_kl_bwd']}; "
+                    f"median {ms:.3f} ms over {CF_TIMED} (min {min(times):.3f}, max "
+                    f"{max(times):.3f}) = {out['cf_samples_per_s']:.1f} CF samples/s; peak "
+                    f"memory {peak:.2f} GB; first loss {float(m['loss']):.4g}, grad_norm "
+                    f"{float(m['grad_norm']):.4g}")
+    # one update: the profiler's processing of its ~33,000-45,000 events
+    # takes tens of seconds a call
+    out["profile"] = profile_calls(update, 1, "update")
+    d.remat = False
+    return out
+
+
+def cf_eval_path(cf, seed, d=None):
+    """The ukbb192 CF eval step (pgm/train_cf.py::make_cf_eval_step: the
+    EMA's DSCM.forward and the predictor on the counterfactuals, under
+    inference_mode) at cf.bs under a random single-parent intervention: K2
+    on every covered block of the 2 encoder and 4 decoder passes, K1 on the
+    2 posterior passes; its time. ``d`` is the DSCM to use (else one is
+    built)."""
+    import numpy as np
+    import torch
+
+    from causal_gen_tpu_torch.pgm.train_cf import (init_cf_state, make_cf_eval_step,
+                                                    random_intervention)
+
+    d = d or cf_dscm("ukbb192", cf, "cuda")
+    st = init_cf_state(cf, d)
+    step = make_cf_eval_step(cf, st.ema)
+    obs = cf_obs("ukbb192", d.cfg, cf.bs, torch.device("cuda"), seed)
+    host = np.random.default_rng(seed)
+    g = torch.Generator().manual_seed(seed)
+    dag = tuple(d.pgm.dag_variables)
+    enc_k2, dec_k2 = k2_cover(d.vae)
+
+    def run():
+        return step(obs, random_intervention(host, dag, obs), generator=g)
+
+    reset_counts()
+    m, preds, cfs = run()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    k2 = 2 * enc_k2 + 4 * dec_k2
+    want = dict(dict.fromkeys(counts, 0), fused_sample_kl=2 * len(k1_res(d.cfg)),
+                fused_light_block=k2, fused_light_block_tc=k2)
+    if counts != want or not torch.isfinite(cfs["x"]).all() or \
+            not all(torch.isfinite(v).all() for v in preds.values()):
+        raise AssertionError(f"ukbb192 CF eval step: launches {counts}, expected {want}")
+    for _ in range(2):
+        run()
+    times = []
+    for _ in range(CF_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    log("cf_train", f"ukbb192 CF eval step bs {cf.bs} (inference_mode): launches K2 "
+                    f"{counts['fused_light_block_tc']}, K1 {counts['fused_sample_kl']}; median "
+                    f"{ms:.3f} ms over {CF_TIMED} (min {min(times):.3f}, max {max(times):.3f})")
+    return {"launches": counts, "eval_ms": ms, "eval_ms_all": times,
+            "profile": profile_calls(run, 1, "eval")}
+
+
+def cf_datasets(n_train, n_valid, seed):
+    """Morpho-MNIST-like ArrayDatasets for the CF CLI: a bright bar of a
+    random width on a dark 32^2 image, thickness and intensity in [-1, 1],
+    a digit one-hot."""
+    import numpy as np
+
+    from causal_gen_tpu_torch.data.datasets import ArrayDataset
+
+    rng = np.random.default_rng(seed)
+
+    def build(n):
+        x = np.zeros((n, 32, 32, 1), np.uint8)
+        for i in range(n):
+            w = int(rng.integers(2, 7))
+            x[i, 8:24, 16 - w // 2: 16 - w // 2 + w] = rng.integers(150, 256)
+        return ArrayDataset(images=x, attrs={
+            "thickness": rng.uniform(-1, 1, n).astype(np.float32),
+            "intensity": rng.uniform(-1, 1, n).astype(np.float32),
+            "digit": np.eye(10, dtype=np.float32)[rng.integers(0, 10, n)]},
+            columns=("thickness", "intensity", "digit"))
+
+    return {"train": build(n_train), "valid": build(n_valid)}
+
+
+def cf_cli_run(save_dir, cf):
+    """cli.train_cf on the card from seeded morphomnist mechanisms written as
+    the port's checkpoints: 1 epoch of 2 updates with the valid sweeps, then
+    --resume for a second; the launches of the first run against the path's
+    (K1 on each update's 2 passes and each sweep batch's 2, K1-bwd on each
+    update's)."""
+    import numpy as np
+    import torch
+
+    from causal_gen_tpu_torch.cli import train_cf as cli
+    from causal_gen_tpu_torch.config import get_config
+    from causal_gen_tpu_torch.models.hvae import HVAE
+    from causal_gen_tpu_torch.pgm.flow_pgm import MorphoMNISTPGM
+    from causal_gen_tpu_torch.pgm.train_pgm import PGMConfig, init_pgm_state, save_pgm_checkpoint
+    from causal_gen_tpu_torch.train.checkpoint import state_payload, write_payload
+    from causal_gen_tpu_torch.train.state import init_train_state
+
+    cfg = get_config("morphomnist", bs=cf.bs)
+    g = torch.Generator().manual_seed(SEED + 160)
+    paths = {r: os.path.join(save_dir, r, "checkpoint") for r in ("vae", "pgm", "aux")}
+    for p in paths.values():
+        os.makedirs(os.path.dirname(p), exist_ok=True)
+    write_payload(paths["vae"], state_payload(init_train_state(cfg, HVAE(cfg, "cuda", g))),
+                  {"config": cfg.to_dict(), "extra": {"best_loss": cf.elbo_constraint}})
+    for role, setup in (("pgm", "sup_pgm"), ("aux", "sup_aux")):
+        pcfg = PGMConfig(setup=setup)
+        mod = MorphoMNISTPGM(setup_predictors=setup == "sup_aux", device="cuda", generator=g)
+        save_pgm_checkpoint(paths[role], pcfg, init_pgm_state(pcfg, mod))
+    n_batches, n_sto = 2, len(k1_res(cfg))
+    ds = cf_datasets(n_batches * cf.bs, n_batches * cf.bs, SEED + 161)
+    out_dir = os.path.join(save_dir, "cf")
+    argv = ["--pgm_path", paths["pgm"], "--predictor_path", paths["aux"], "--vae_path",
+            paths["vae"], "--device", "cuda", "--bs", str(cf.bs), "--max_batches",
+            str(n_batches), "--save_dir", out_dir, "--thickness_weight",
+            str(cf.thickness_weight), "--intensity_weight", str(cf.intensity_weight),
+            "--wd", str(cf.wd), "--calib_n", "64"]
+    reset_counts()
+    t0 = time.perf_counter()
+    state, hist = cli.main(argv + ["--epochs", "1"], datasets=ds)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    sweeps = len(state.dscm.pgm.dag_variables) + 1
+    want = dict(dict.fromkeys(counts, 0), fused_sample_kl=2 * n_sto * n_batches * (1 + sweeps),
+                fused_sample_kl_bwd=2 * n_sto * n_batches)
+    if counts != want or state.step + state.skipped != n_batches or \
+            not all(math.isfinite(v) for v in hist.values()):
+        raise AssertionError(f"cli.train_cf: launches {counts}, expected {want}; {hist}")
+    state2, _ = cli.main(argv + ["--epochs", "2", "--resume", os.path.join(out_dir, "checkpoint")],
+                         datasets=ds)
+    if state2.step + state2.skipped != 2 * n_batches:
+        raise AssertionError(f"cli.train_cf --resume: {state2.step} updates, {state2.skipped} "
+                             f"skipped after 2 epochs")
+    log("cf_train", f"cli.train_cf morphomnist bs {cf.bs} on the card: 1 epoch x {n_batches} "
+                    f"updates + {sweeps} valid sweeps in {secs:.1f} s, launches {counts}; "
+                    f"--resume took epoch 2 ({state2.step} made, {state2.skipped} skipped); "
+                    f"random-do valid loss {hist['valid_do_None/loss']:.4g}")
+    return {"seconds": secs, "launches": counts, "history": hist}
+
+
+def phase_cf_train():
+    """Counterfactual fine-tuning (pgm/train_cf.py) and its eval step on the
+    card: the ukbb192 flagship's CF configuration (bf16, bs 16) with and
+    without remat, its eval step, the mimic192 flagship's and
+    final_cf_morph_tw25's (morphomnist with the soft-morphometry terms, bs
+    32) updates; card against the CPU plain path (float32, TF32 off, each
+    update from one state: ukbb192 at bs CHECK_BS once, morphomnist twice);
+    remat on against off on the card; cli.train_cf with a resume."""
+    import tempfile
+
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"configs": {k: cf_config(k).to_dict() for k in CF_CONFIGS}, "seconds": {}}
+    t0 = time.perf_counter()
+
+    def lap(part):  # the phase's seconds by part, for the run's time budget
+        out["seconds"][part] = time.perf_counter() - t0 - sum(out["seconds"].values())
+
+    ukbb, mimic, morph = (cf_config(k) for k in ("ukbb192", "mimic192", "morphomnist"))
+    # K1 and K1-bwd at the CF paths' shapes (morphomnist's are phase K1's)
+    shapes = sorted({(cf.bs, c.z_dim, r, r) for cf, c in ((ukbb, ukbb_config(bs=ukbb.bs)),
+                                                          (mimic, mimic_config(bs=mimic.bs)))
+                     for r in k1_res(c)})
+    g = torch.Generator().manual_seed(SEED + 158)
+    out.update(k1_shapes=shapes, k1_max_abs_err=k1_check(shapes, g),
+               k1_bwd_max_abs_err=k1_bwd_check(shapes, g))
+    lap("K1 checks")
+    log("cf_train", f"K1 == plain version (max err {out['k1_max_abs_err']:.2e}) and K1-bwd == "
+                    f"autograd of it (max err {out['k1_bwd_max_abs_err']:.2e}) at the ukbb192 "
+                    f"and mimic192 CF updates' {len(shapes)} shapes, bs 16")
+    out["card_vs_cpu"] = {"ukbb192": cf_updates_card_vs_cpu("ukbb192", ukbb, 1, CHECK_BS,
+                                                            SEED + 150),
+                          "morphomnist": cf_updates_card_vs_cpu("morphomnist", morph, 2, 8,
+                                                                SEED + 151)}
+    lap("card vs CPU")
+    for k, ups in out["card_vs_cpu"].items():
+        log("cf_train", f"{k} float32 CF updates card == CPU from one state each (TF32 off, the "
+                        f"same batch, intervention and draws): terms rel "
+                        + ", ".join(f"{max(u['rel_err'].values()):.2e}" for u in ups)
+                        + "; lmbda " + ", ".join(f"{u['lmbda_abs_err']:.1e}" for u in ups)
+                        + "; params and EMA " + ", ".join(f"{u['params_ema_max_abs_err']:.1e}"
+                                                          for u in ups)
+                        + f" (2 lr {2 * CF_CONFIGS[k]['lr']:.0e})")
+    # one seeded ukbb192 DSCM serves its paths, its weights restored before each
+    uk_d = cf_dscm("ukbb192", ukbb, "cuda")
+    uk_init = {k: v.detach().clone() for k, v in uk_d.vae.state_dict().items()}
+
+    def ukbb_dscm():
+        uk_d.vae.load_state_dict(uk_init)
+        return uk_d
+
+    out["remat_grads"] = {"morphomnist": cf_remat_grads("morphomnist", morph, BS, SEED + 152),
+                          "ukbb192": cf_remat_grads("ukbb192", ukbb, CHECK_BS, SEED + 153,
+                                                    ukbb_dscm())}
+    log("cf_train", "remat on == off on the card (same generator seed, deterministic "
+                    "algorithms): "
+                    + ", ".join(f"{k} max rel err {v['max_rel_err']:.1e} (K1 "
+                                f"{v['launches_off']['fused_sample_kl']} -> "
+                                f"{v['launches_on']['fused_sample_kl']})"
+                                for k, v in out["remat_grads"].items()))
+    lap("remat grads")
+    out["ukbb192"] = cf_timed_update("ukbb192", ukbb, False, SEED + 154, ukbb_dscm())
+    out["ukbb192_remat"] = cf_timed_update("ukbb192", ukbb, True, SEED + 154, ukbb_dscm())
+    out["ukbb192_eval"] = cf_eval_path(ukbb, SEED + 155, ukbb_dscm())
+    del uk_d
+    torch.cuda.empty_cache()
+    lap("ukbb192 paths")
+    out["mimic192"] = cf_timed_update("mimic192", mimic, False, SEED + 156)
+    out["morphomnist"] = cf_timed_update("morphomnist", morph, False, SEED + 157)
+    lap("mimic192 and morphomnist paths")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cf_") as save_dir:
+        out["cli"] = cf_cli_run(save_dir, morph)
+    lap("cli.train_cf")
+    log("cf_train", "seconds by part: " + ", ".join(f"{k} {v:.1f}"
+                                                    for k, v in out["seconds"].items()))
+    reset_counts()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3504,28 +3965,38 @@ def main() -> int:
     from causal_gen_tpu_torch.config import get_config
 
     cfg = get_config("morphomnist", bs=BS)
-    build_s = phase_build()
-    k1 = phase_k1(cfg)
-    k1b = phase_k1_bwd(cfg)
-    k3 = phase_k3()
-    k4 = phase_k4()
-    k2 = phase_k2()
-    sl = phase_slice(cfg)
-    samp = phase_sample(cfg)
-    train = {n: phase_train(n) for n in TRAIN_CONFIGS}
-    entry = {n: phase_entry(n) for n in TRAIN_CONFIGS}
-    uk = phase_ukbb_slice()
-    uk_samp = phase_ukbb_sample()
-    uk_train = phase_ukbb_train()
-    uk64 = phase_ukbb64()
-    mim = phase_mimic()
-    cp = phase_cond_prior()
-    vol = phase_vol3d()
-    pgm = phase_pgm_train()
-    pgm.update(phase_pgm_train(("semi_sup_mimic",)))
-    dcf = phase_dense_cf(cfg)
-    ccf = phase_cmnist_cf()
-    svae = phase_simple_vae()
+    seconds = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        r = fn(*a)
+        seconds[name] = time.perf_counter() - t0
+        log("time", f"phase {name}: {seconds[name]:.1f} s (run at {time.perf_counter() - t_start:.1f} s)")
+        return r
+
+    build_s = timed("build", phase_build)
+    k1 = timed("K1", phase_k1, cfg)
+    k1b = timed("K1-bwd", phase_k1_bwd, cfg)
+    k3 = timed("K3", phase_k3)
+    k4 = timed("K4", phase_k4)
+    k2 = timed("K2", phase_k2)
+    sl = timed("slice", phase_slice, cfg)
+    samp = timed("sample", phase_sample, cfg)
+    train = timed("train", lambda: {n: phase_train(n) for n in TRAIN_CONFIGS})
+    entry = timed("entry", lambda: {n: phase_entry(n) for n in TRAIN_CONFIGS})
+    uk = timed("ukbb", phase_ukbb_slice)
+    uk_samp = timed("ukbb-sample", phase_ukbb_sample)
+    uk_train = timed("ukbb-train", phase_ukbb_train)
+    uk64 = timed("ukbb64", phase_ukbb64)
+    mim = timed("mimic", phase_mimic)
+    cp = timed("cond_prior", phase_cond_prior)
+    vol = timed("vol3d", phase_vol3d)
+    pgm = timed("pgm_train", phase_pgm_train)
+    pgm.update(timed("pgm_train mimic", phase_pgm_train, ("semi_sup_mimic",)))
+    dcf = timed("dense_cf", phase_dense_cf, cfg)
+    ccf = timed("cmnist_cf", phase_cmnist_cf)
+    svae = timed("simple_vae", phase_simple_vae)
+    cft = timed("cf_train", phase_cf_train)
     turns = phase_turns(os.path.abspath(args.parent)) if args.parent else None
     # launches on the main paths, each counted from 0: DSCM.forward (the
     # Morpho-MNIST, ukbb192, ukbb64 and mimic192 serving slices),
@@ -3549,6 +4020,13 @@ def main() -> int:
                     "DSCM.forward cmnist": ccf["launches"]})
     by_path.update({f"train_pgm {n}": r["launches"] for n, r in pgm.items()})
     by_path.update({f"DSCM.forward + sample simple_vae {v}": svae[v]["launches"] for v in svae})
+    by_path.update({"cf_train_step ukbb192 bf16": cft["ukbb192"]["launches"],
+                    "cf_train_step ukbb192 bf16 cf_remat": cft["ukbb192_remat"]["launches"],
+                    "cf eval step ukbb192 bf16": cft["ukbb192_eval"]["launches"],
+                    "cf_train_step mimic192 bf16": cft["mimic192"]["launches"],
+                    "cf_train_step morphomnist (final_cf_morph_tw25)":
+                        cft["morphomnist"]["launches"],
+                    "cli.train_cf morphomnist": cft["cli"]["launches"]})
 
     # K2's float32 kernel also runs in the float32 card-vs-CPU checks, each
     # counted from 0; those launches are listed apart
@@ -3571,18 +4049,22 @@ def main() -> int:
             "causal_gen_tpu/ops/pallas_kernels.py:109",
             "phase K1 (injected eps at every slice shape + ragged; Philox statistics; the "
             "dense do_mask path has the slice's shapes), phase mimic (injected eps at the "
-            "mimic192 path's shapes), phase vol3d (injected eps at vol3d32's (8,8,r,r,r)) and "
-            "phase cmnist_cf (injected eps at the Colour-MNIST path's shapes)",
+            "mimic192 path's shapes), phase vol3d (injected eps at vol3d32's (8,8,r,r,r)), "
+            "phase cmnist_cf (injected eps at the Colour-MNIST path's shapes) and phase "
+            "cf_train (injected eps at the ukbb192 and mimic192 CF updates' shapes, bs 16)",
             dict(k1, max_abs_err=max(k1["max_abs_err"], mim["k1_max_abs_err"],
-                                     vol["k1_max_abs_err"], ccf["k1_max_abs_err"])),
+                                     vol["k1_max_abs_err"], ccf["k1_max_abs_err"],
+                                     cft["k1_max_abs_err"])),
             ms_inputs_in_l2=k1["ms_l2"], ms_philox=k1["ms_philox"],
             bound_ms_philox=k1["bound_ms_philox"]),
         row("fused_sample_kl_bwd", "causal_gen_tpu_torch/csrc/sample_kl.cu",
             "causal_gen_tpu/ops/pallas_kernels.py:136",
             "phase K1-bwd (autograd of the plain version, injected eps and Philox, every "
-            "slice shape + ragged) and phase vol3d (the same at vol3d32's (8,8,r,r,r), the "
-            "KL's cotangent stride 0 over (D,H,W))",
-            dict(k1b, max_abs_err=max(k1b["max_abs_err"], vol["k1_bwd_max_abs_err"]))),
+            "slice shape + ragged), phase vol3d (the same at vol3d32's (8,8,r,r,r), the "
+            "KL's cotangent stride 0 over (D,H,W)) and phase cf_train (the same at the "
+            "ukbb192 and mimic192 CF updates' shapes, bs 16)",
+            dict(k1b, max_abs_err=max(k1b["max_abs_err"], vol["k1_bwd_max_abs_err"],
+                                      cft["k1_bwd_max_abs_err"]))),
         row("dmol_loss", "causal_gen_tpu_torch/csrc/dmol_loss.cu",
             "causal_gen_tpu/ops/pallas_kernels.py:230",
             "phase K3 (plain op at (32,100,32,32) and a ragged size with edge and switch "
@@ -3624,8 +4106,9 @@ def main() -> int:
               "k3": k3, "k4": k4, "k2": k2, "slice": sl, "sample": samp, "train": train,
               "entry": entry, "ukbb": uk, "ukbb_sample": uk_samp, "ukbb_train": uk_train,
               "ukbb64": uk64, "mimic": mim, "cond_prior": cp, "vol3d": vol, "pgm_train": pgm,
-              "dense_cf": dcf, "cmnist_cf": ccf, "simple_vae": svae, "turns": turns,
-              "kernels": kernels,
+              "dense_cf": dcf, "cmnist_cf": ccf, "simple_vae": svae, "cf_train": cft,
+              "turns": turns,
+              "kernels": kernels, "phase_seconds": seconds,
               "total_s": time.perf_counter() - t_start}
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)

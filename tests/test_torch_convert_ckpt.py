@@ -130,14 +130,14 @@ def test_pgm_fields_name_each_class_arguments():
     """build_pgm passes each PGM_REGISTRY class exactly the config fields its
     constructor takes (PGM_FIELDS), besides setup_predictors, device and
     generator, and, for the classes whose SCM nets and predictors are
-    separate roles (FlowPGM, ChestPGM), scm_nets, which a semi_sup config
-    sets."""
+    separate roles (FlowPGM, ChestPGM, MorphoMNISTPGM), scm_nets, which a
+    semi_sup config sets."""
     from causal_gen_tpu_torch.pgm.flow_pgm import PGM_REGISTRY
 
     assert sorted(PGM_FIELDS) == sorted(PGM_REGISTRY)
     for prefix, cls in PGM_REGISTRY.items():
         args = set(inspect.signature(cls).parameters)
-        roles = {"scm_nets"} if prefix in ("ukbb", "mimic") else set()
+        roles = {"scm_nets"} if prefix in ("ukbb", "mimic", "morphomnist") else set()
         assert args == set(PGM_FIELDS[prefix]) | {"setup_predictors", "device",
                                                   "generator"} | roles
 

@@ -80,6 +80,19 @@ def test_the_pgm_training_slice_modules_are_checked(rel):
     assert "tests/test_torch_pgm_train_gpu.py" in checked
 
 
+@pytest.mark.parametrize("rel", ["ops/soft_morph.py", "eval/__init__.py", "eval/morphometrics.py",
+                                 "eval/cf_eval.py", "pgm/train_cf.py", "pgm/dscm.py",
+                                 "pgm/flow_pgm.py", "cli/train_cf.py", "cli/evaluate.py",
+                                 "convert.py", "train/checkpoint.py"])
+def test_the_cf_training_slice_modules_are_checked(rel):
+    """Each module the counterfactual fine-tuning and evaluation slice adds
+    or changes is among those held to the rules above, and so is its card
+    test; the new modules import in the JAX-free interpreter below."""
+    checked = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert f"causal_gen_tpu_torch/{rel}" in checked
+    assert "tests/test_torch_cf_gpu.py" in checked
+
+
 def test_every_module_imports_without_jax():
     """Import every module of the package in a fresh interpreter that refuses
     JAX and the JAX package."""

@@ -79,7 +79,7 @@ def _pgms(seed=0, res=16):
     flow = JPGM(setup_predictors=False)
     params["intensity_net"] = to_numpy(flow.init({"params": rng, "sample": rng}, attrs)["params"]
                                        ["intensity_net"])
-    tpgm = MorphoMNISTPGM(setup_predictors=True, input_res=res, device="cpu")
+    tpgm = MorphoMNISTPGM(setup_predictors=True, input_res=res, device="cpu", scm_nets=True)
     load_jax_params(tpgm, params)
     return jpgm, params, tpgm, obs, attrs
 

@@ -18,6 +18,7 @@ holds a whole committed DSCM on both sides.
 from __future__ import annotations
 
 import functools
+import os
 from typing import Any, Dict, List
 
 import jax
@@ -328,7 +329,11 @@ def flax_checkpoint_numpy(path: str, kind: str) -> Dict[str, Any]:
     """The EMA parameters of a committed checkpoint as a tree of numpy arrays,
     restored read-only through the JAX package: ``kind`` "vae" through
     ``causal_gen_tpu.train.checkpoint.load_checkpoint``, "pgm" or "aux"
-    through ``causal_gen_tpu.pgm.train_pgm.load_pgm_checkpoint``. With
+    through ``causal_gen_tpu.pgm.train_pgm.load_pgm_checkpoint``; "cf" gives
+    a CF checkpoint's whole state (``causal_gen_tpu.pgm.train_cf.
+    cf_state_payload``: both trainable trees, both optax states as Orbax
+    restores them without a template, the counters), which
+    ``causal_gen_tpu_torch.convert.cf_state_from_jax`` reads. With
     ``causal_gen_tpu_torch.convert.save_converted`` it makes the file that
     ``load_converted`` reads on the card."""
     if kind == "vae":
@@ -339,9 +344,25 @@ def flax_checkpoint_numpy(path: str, kind: str) -> Dict[str, Any]:
         from causal_gen_tpu.pgm.train_pgm import load_pgm_checkpoint
 
         _, state, _ = load_pgm_checkpoint(path)
+    elif kind == "cf":
+        import orbax.checkpoint as ocp
+
+        return _numpy_tree(ocp.PyTreeCheckpointer().restore(os.path.abspath(path)))
     else:
-        raise ValueError(f"kind {kind!r} is none of vae, pgm, aux")
+        raise ValueError(f"kind {kind!r} is none of vae, pgm, aux, cf")
     return to_numpy(state.ema_params)
+
+
+def _numpy_tree(tree: Any) -> Any:
+    """An Orbax restore without a template (dicts, lists, None, ints and
+    arrays) with every array as numpy."""
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_numpy_tree(v) for v in tree]
+    if tree is None or isinstance(tree, (int, float)):
+        return tree
+    return np.asarray(tree)
 
 
 class GumbelRecorder:
@@ -623,8 +644,7 @@ def pgm_pair(dataset: str, role: str, res: int = 32, seed: int = 0, n: int = 6):
     them) or "semi" (both, as semi_sup's ``init_all``). Every leaf is drawn
     anew from a seeded stream (kernels N(0, 1/fan_in), the rest their init
     + 0.5 N(0, 1)), so no zero-initialised logit, spline or bias hides a
-    path. The port's Morpho-MNIST predictor holds the SCM net too, which
-    the JAX aux tree lacks: it loads with that net missing."""
+    path. Each role's module loads its tree with ``strict=True``."""
     from causal_gen_tpu.pgm.flow_pgm import PGM_REGISTRY as JREG
     from causal_gen_tpu_torch.pgm.flow_pgm import PGM_REGISTRY as TREG
 
@@ -652,13 +672,10 @@ def pgm_pair(dataset: str, role: str, res: int = 32, seed: int = 0, n: int = 6):
         return (a + 0.5 * rng.standard_normal(a.shape)).astype(np.float32)
 
     tree = to_numpy(jax.tree_util.tree_map_with_path(leaf, tree))
-    extra = {"scm_nets": True} if role == "semi" and dataset in ("ukbb", "mimic") else {}
+    extra = {"scm_nets": True} if role == "semi" and dataset != "cmnist" else {}
     tpgm = TREG[dataset](setup_predictors=predictors, device="cpu",
                          **({} if dataset == "mimic" else {"input_res": res}), **extra)
-    if dataset == "morphomnist" and role == "aux":
-        load_jax_params(tpgm, tree, allow_missing="intensity_net")
-    else:
-        tpgm.load_state_dict(params_from_jax(tree), strict=True)
+    tpgm.load_state_dict(params_from_jax(tree), strict=True)
     return jpgm, tree, tpgm, obs
 
 
@@ -696,3 +713,56 @@ def patch_jax_draws(monkeypatch, seed: int, *names: str) -> JaxDraws:
     for name in names:
         monkeypatch.setattr(jax.random, name, getattr(rec, name))
     return rec
+
+
+def small_dscm_pair(seed: int = 0, elbo_constraint: float = 1.8, **dscm_fields):
+    """tests/test_dscm.py's small Morpho-MNIST DSCM (16^2) on both sides
+    with the same seeded parameters, made from ``jax.eval_shape`` (seconds,
+    where the flax inits take about a minute): the HVAE's as
+    ``random_jax_params`` draws them, halved (at full size its decoded
+    scales overflow on some images), the PGM's and the predictor's kernels
+    N(0, 1 / fan_in), norm scales 1 + 0.1 N(0, 1), biases 0.05 N(0, 1) and
+    the spline and digit logits N(0, 1). ``dscm_fields`` (the soft-morphometry weights, ``remat``) go to
+    both DSCMs. Returns (JAX DSCM, its VAE tree, the frozen trees, the
+    port's DSCM on the CPU)."""
+    from causal_gen_tpu.pgm.dscm import DSCM as JDSCM
+    from causal_gen_tpu.pgm.flow_pgm import MorphoMNISTPGM as JPGM
+    from causal_gen_tpu_torch.pgm.dscm import DSCM
+    from causal_gen_tpu_torch.pgm.flow_pgm import MorphoMNISTPGM
+
+    jcfg, tcfg = small_morpho_cfg(True), small_morpho_cfg(False)
+    jvae = JHVAE(cfg=jcfg)
+    vae_params = random_jax_params(jvae, jcfg, seed=seed)
+    jpgm = JPGM(setup_predictors=False)
+    jpred = JPGM(setup_predictors=True, input_res=jcfg.input_res)
+    n = 2
+    attrs = {"thickness": jnp.zeros((n, 1)), "intensity": jnp.zeros((n, 1)),
+             "digit": jnp.zeros((n, 10))}
+    x = jnp.zeros((n, jcfg.input_res, jcfg.input_res, 1))
+    key = jax.random.PRNGKey(0)
+    shapes = {"pgm": jax.eval_shape(lambda k: jpgm.init({"params": k, "sample": k},
+                                                       attrs)["params"], key),
+              "predictor": jax.eval_shape(lambda k: jpred.init(
+                  {"params": k, "sample": k}, x, method=jpred.anticausal_logprob,
+                  **attrs)["params"], key)}
+    rng = np.random.default_rng(seed + 100)
+
+    def leaf(path, s):
+        name = path[-1].key
+        z = rng.standard_normal(s.shape)
+        if name == "kernel":
+            return (z / np.sqrt(np.prod(s.shape[:-1]))).astype(np.float32)
+        return {"scale": 1.0 + 0.1 * z, "bias": 0.05 * z}.get(name, z).astype(np.float32)
+
+    frozen = {k: to_numpy(jax.tree_util.tree_map_with_path(leaf, v)) for k, v in shapes.items()}
+    vae_params = jax.tree_util.tree_map(lambda a: 0.5 * a, vae_params)
+    jdscm = JDSCM(cfg=jcfg, pgm=jpgm, predictor=jpred, vae=jvae,
+                  elbo_constraint=elbo_constraint, **dscm_fields)
+    tvae = HVAE(tcfg, device="cpu")
+    load_jax_params(tvae, vae_params)
+    tpgm = MorphoMNISTPGM(setup_predictors=False, device="cpu")
+    load_jax_params(tpgm, frozen["pgm"])
+    tpred = MorphoMNISTPGM(setup_predictors=True, input_res=tcfg.input_res, device="cpu")
+    tpred.load_state_dict(params_from_jax(frozen["predictor"]), strict=True)
+    tdscm = DSCM(tcfg, tpgm, tpred, tvae, elbo_constraint=elbo_constraint, **dscm_fields)
+    return jdscm, vae_params, frozen, tdscm
