@@ -25,7 +25,7 @@ import numpy as np
 
 from causal_gen_tpu_torch import resolve_device
 from causal_gen_tpu_torch.cli.train_cf import build_pgm_from_ckpt, build_vae_from_ckpt
-from causal_gen_tpu_torch.data.datasets import setup_datasets
+from causal_gen_tpu_torch.data.datasets import make_datasets
 from causal_gen_tpu_torch.data.loader import Loader
 from causal_gen_tpu_torch.eval.cf_eval import eval_cf_loop
 
@@ -56,7 +56,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[list] = None, datasets: Optional[Dict] = None) -> Dict:
     """Evaluate and print the result; returns it. ``datasets`` replaces the
     files under ``--data_dir`` with in-memory ``ArrayDataset``s (train and
-    test)."""
+    test), or is a function of the data config that makes them."""
     args, _ = build_parser().parse_known_args(argv)
     device = resolve_device(args.device)
     pgm_cfg, pgm, _ = build_pgm_from_ckpt(args.pgm_path, device)
@@ -79,8 +79,7 @@ def main(argv: Optional[list] = None, datasets: Optional[Dict] = None) -> Dict:
         data_cfg = data_cfg.replace(parents_x=tuple(pgm_cfg.parents_x))
     if "ukbb" in vae_cfg.name:
         data_cfg = data_cfg.replace(context_norm="[-1,1]")
-    if datasets is None:
-        datasets = setup_datasets(data_cfg)
+    datasets = make_datasets(datasets, data_cfg)
     loader = Loader(datasets["test"], args.bs, shuffle=False, drop_last=False, concat_pa=False,
                     max_batches=args.max_batches)
     train_attrs = {k: np.asarray(v) for k, v in datasets["train"].attrs.items()}

@@ -16,10 +16,23 @@ the generated sphere volumes; ``--vae simple`` trains the single-latent
     python -m causal_gen_tpu_torch.cli.main --hps morphomnist --vae simple \
         --x_like diag_gauss --data_dir DIR --epochs 10
 
+``--remat`` rematerialises the HVAE's blocks at resolutions of at least
+``--remat_min_res`` in the backward, with ``--stage_scan`` picking JAX's unit
+(a whole decoder block of a scanned run, its draw replayed; see
+``models/hvae.py``); the flagships train so at bs 128:
+
+    python -m causal_gen_tpu_torch.cli.main --hps ukbb192 --data_dir DIR --bs 128 \
+        --stage_scan --remat --remat_min_res 48
+
 Fields of the JAX CLI that only steer the JAX programs (``--use_pallas``,
-``--stage_scan``, ``--remat``, ``--steps_per_call``, ...) are accepted and go
-into the stored config; the port's step ignores them. The visualisations are
-not ported.
+``--steps_per_call``, the mesh) are accepted and go into the stored config;
+the port's step ignores them.
+
+Every ``viz_freq`` iterations (in whole epochs), and at the early iterations
+start+1 and start+2^n, the EMA model draws ``utils/viz.py::write_images`` on
+the first ``min(context_dim * 5, bs)`` valid images into
+``<save_dir>/viz-<epoch>.png``; a failure there (PIL missing, say) is logged
+and training goes on, as in the JAX CLI. ``--viz_freq 0`` turns it off.
 """
 
 from __future__ import annotations
@@ -28,16 +41,18 @@ import argparse
 import os
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from causal_gen_tpu_torch import resolve_device
 from causal_gen_tpu_torch.config import get_config
-from causal_gen_tpu_torch.data.datasets import setup_datasets
+from causal_gen_tpu_torch.data.datasets import make_datasets
 from causal_gen_tpu_torch.data.loader import setup_loaders
 from causal_gen_tpu_torch.models.simple_vae import build_vae
 from causal_gen_tpu_torch.train.checkpoint import load_checkpoint, restore_train_state
 from causal_gen_tpu_torch.train.experiment import MetricWriter, setup_directories, setup_logging
 from causal_gen_tpu_torch.train.vae_trainer import train
+from causal_gen_tpu_torch.utils.viz import write_images
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -97,7 +112,8 @@ _RESUME_OVERRIDES = ("lr", "epochs", "data_dir", "eval_freq", "viz_freq")
 
 def main(argv: Optional[list] = None, datasets: Optional[Dict] = None) -> Tuple:
     """Train; returns (state, history). ``datasets`` replaces the files under
-    ``--data_dir`` with in-memory ``ArrayDataset``s (train/valid)."""
+    ``--data_dir`` with in-memory ``ArrayDataset``s (train/valid), or is a
+    function of the run's config that makes them."""
     args, _ = build_parser().parse_known_args(argv)
     device = resolve_device(args.device)
     overrides = {
@@ -121,13 +137,34 @@ def main(argv: Optional[list] = None, datasets: Optional[Dict] = None) -> Tuple:
     logger.info("device: %s%s", device,
                 f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
 
-    datasets = datasets if datasets is not None else setup_datasets(cfg)
+    datasets = make_datasets(datasets, cfg)
     loaders = setup_loaders(datasets, cfg.bs, seed=cfg.seed, max_batches=args.max_batches)
     model = build_vae(cfg, device=device, generator=torch.Generator().manual_seed(cfg.seed))
     init_state = None if payload is None else restore_train_state(cfg, model, payload)
+    viz_batch = datasets["valid"].batch(np.arange(min(cfg.context_dim * 5, cfg.bs)))
+    # viz_freq counts iterations; whole epochs run between callbacks
+    steps_per_epoch = max(1, len(loaders["train"]))
+    viz_epoch_freq = max(1, round(cfg.viz_freq / steps_per_epoch)) if cfg.viz_freq else 0
+    # the early cadence (reference trainer.py:89-91, 124): an epoch that
+    # holds iteration start+1 or start+2^n, n in 3..13, also draws
+    start_iter = init_state.step if init_state is not None else 0
+    early_iters = {start_iter + 1} | {start_iter + 2**n for n in range(3, 14)}
+
+    def is_early(epoch: int) -> bool:
+        lo, hi = (epoch - 1) * steps_per_epoch, epoch * steps_per_epoch
+        return any(lo < it <= hi for it in early_iters)
+
+    def callback(epoch, state, hist):
+        writer.add_scalars(hist, epoch)
+        if viz_epoch_freq and (epoch % viz_epoch_freq == 0 or is_early(epoch)):
+            try:
+                write_images(cfg, state.ema, viz_batch,
+                             os.path.join(save_dir, f"viz-{epoch}.png"))
+            except Exception as e:  # viz never stops training
+                logger.warning("viz failed: %s", e)
+
     try:
-        state, history = train(cfg, model, loaders, save_dir=save_dir,
-                               callback=lambda epoch, _, hist: writer.add_scalars(hist, epoch),
+        state, history = train(cfg, model, loaders, save_dir=save_dir, callback=callback,
                                init_state=init_state)
     finally:
         writer.close()

@@ -20,8 +20,11 @@ then swept on the valid set under do(pa_k) for each variable and under a
 random one, whose loss picks the best save (``<save_dir>/checkpoint``).
 ``--resume`` takes a CF checkpoint, whose config holds but for the run
 control (``--epochs``, ``--eval_freq``, ``--accu_steps``,
-``--steps_per_call``, ``--cf_remat``). The JAX CLI's counterfactual panel
-is not ported (it needs matplotlib); the run says so in its log.
+``--steps_per_call``, ``--cf_remat``). After each evaluation the EMA draws
+the counterfactual panel of one valid batch under a random intervention
+(observation, counterfactual, direct effect and, with ``--cf_particles`` > 1,
+the uncertainty) into ``cf_panel_<epoch>.png`` (``utils/plots.py::plot_cf``;
+nothing is drawn without matplotlib, and a failure is logged, as in JAX).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import numpy as np
 import torch
 
 from causal_gen_tpu_torch import resolve_device
-from causal_gen_tpu_torch.data.datasets import setup_datasets
+from causal_gen_tpu_torch.data.datasets import make_datasets
 from causal_gen_tpu_torch.data.loader import setup_loaders
 from causal_gen_tpu_torch.models.simple_vae import build_vae
 from causal_gen_tpu_torch.pgm.dscm import DSCM
@@ -47,18 +50,17 @@ from causal_gen_tpu_torch.pgm.train_cf import (
     cf_train_epoch,
     init_cf_state,
     load_cf_meta,
+    make_cf_eval_step,
+    random_intervention,
     restore_cf_state,
 )
-from causal_gen_tpu_torch.pgm.train_pgm import load_pgm_checkpoint
+from causal_gen_tpu_torch.pgm.train_pgm import load_pgm_checkpoint, preprocess_pgm_batch
 from causal_gen_tpu_torch.train.checkpoint import CheckpointWriter, load_checkpoint
 from causal_gen_tpu_torch.train.experiment import MetricWriter, setup_directories, setup_logging
-
-PANEL_NOTE = "the counterfactual panel of each evaluation is not ported (it needs matplotlib)"
-
+from causal_gen_tpu_torch.utils.plots import plot_cf
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="Counterfactual DSCM fine-tuning with PyTorch. "
-                                            "Note: " + PANEL_NOTE + ".")
+    p = argparse.ArgumentParser(description="Counterfactual DSCM fine-tuning with PyTorch.")
     p.add_argument("--pgm_path", required=True)
     p.add_argument("--predictor_path", required=True)
     p.add_argument("--vae_path", required=True)
@@ -124,10 +126,34 @@ def build_vae_from_ckpt(path: str, device: "str | torch.device", data_dir: str =
     return cfg, vae, extra
 
 
+def _nhwc(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy().transpose(0, *range(2, t.dim()), 1)
+
+
+def cf_panel(cfg: CFConfig, pgm_cfg, state: CFTrainState, loaders: Dict,
+             device: torch.device, dag_vars: Tuple[str, ...], epoch: int, save_path: str):
+    """The counterfactual panel of the EMA on the first valid batch under a
+    random intervention (causal_gen_tpu/cli/train_cf.py:275-305); with
+    ``cf_particles`` > 1 a second forward gives the variance map."""
+    vbatch = preprocess_pgm_batch(pgm_cfg, next(iter(loaders["valid"])), device)
+    vdo = random_intervention(np.random.default_rng(epoch), dag_vars, vbatch, cfg.do_pa)
+    generator = torch.Generator().manual_seed(cfg.seed + 10**6 + epoch)
+    _, _, vcfs = make_cf_eval_step(cfg, state.ema)(vbatch, vdo, generator=generator)
+    var = None
+    if cfg.cf_particles > 1:
+        with torch.inference_mode():
+            out = state.ema.forward(vbatch, vdo, cf_particles=cfg.cf_particles, beta=cfg.beta,
+                                    generator=generator)
+        var = out.get("var_cf_x")
+    return plot_cf(_nhwc(vbatch["x"]), _nhwc(vcfs["x"]), None if var is None else _nhwc(var),
+                   save_path=save_path)
+
+
 def main(argv: Optional[list] = None, datasets: Optional[Dict] = None
          ) -> Tuple[CFTrainState, Dict[str, float]]:
     """Train; returns (state, history). ``datasets`` replaces the files under
-    ``--data_dir`` with in-memory ``ArrayDataset``s (train/valid)."""
+    ``--data_dir`` with in-memory ``ArrayDataset``s (train/valid), or is a
+    function of the data config that makes them."""
     args, _ = build_parser().parse_known_args(argv)
     device = resolve_device(args.device)
     pgm_cfg, pgm, _ = build_pgm_from_ckpt(args.pgm_path, device)
@@ -176,8 +202,7 @@ def main(argv: Optional[list] = None, datasets: Optional[Dict] = None
         data_cfg = data_cfg.replace(parents_x=tuple(pgm_cfg.parents_x))
     if "ukbb" in vae_cfg.name:
         data_cfg = data_cfg.replace(context_norm="raw")
-    if datasets is None:
-        datasets = setup_datasets(data_cfg)
+    datasets = make_datasets(datasets, data_cfg)
     loaders = setup_loaders(datasets, cfg.bs, seed=cfg.seed, concat_pa=False,
                             max_batches=args.max_batches)
 
@@ -228,7 +253,11 @@ def main(argv: Optional[list] = None, datasets: Optional[Dict] = None
                 history.update({f"valid_do_{pa_k}/{k}": v for k, v in {**ev, **metrics}.items()})
                 if pa_k is None:
                     ckpt_writer.update_metric(ev["loss"], path=path)
-            logger.info("not written: %s", PANEL_NOTE)
+            try:
+                cf_panel(cfg, pgm_cfg, state, loaders, device, dag_vars, epoch,
+                         os.path.join(save_dir, f"cf_panel_{epoch}.png"))
+            except Exception as e:  # viz never stops training
+                logger.warning("cf panel failed: %s", e)
         if cfg.epochs % cfg.eval_freq:
             save(cfg.epochs)  # a short run with a sparse evaluation still keeps its state
     finally:

@@ -12,10 +12,11 @@ runs on the CPU):
 ``semi_sup`` both on a ``--sup_frac`` labelled split. The best (``sup_*``)
 or latest (``semi_sup``) state goes to ``<save_dir>/checkpoint``
 (``pgm/train_pgm.py::save_pgm_checkpoint``); the predictors' metrics follow
-a ``sup_aux`` or ``semi_sup`` run. The JAX CLI's joint plot of sampled
-against data morphometrics after ``sup_pgm`` on Morpho-MNIST is not ported
-yet: it comes with ``utils/plots.py`` and the evaluation slice, and the run
-says so in its log.
+a ``sup_aux`` or ``semi_sup`` run. After ``sup_pgm`` on Morpho-MNIST the
+joint plots of 512 samples of the EMA PGM and of the train set's
+morphometrics go to ``joint_samples.png`` and ``joint_data.png``
+(``utils/plots.py::plot_joint``; nothing is drawn without matplotlib,
+seaborn and pandas).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch
 from causal_gen_tpu_torch import resolve_device
 from causal_gen_tpu_torch.config import get_config
 from causal_gen_tpu_torch.convert import build_pgm as build_pgm_from_config
-from causal_gen_tpu_torch.data.datasets import setup_datasets
+from causal_gen_tpu_torch.data.datasets import make_datasets
 from causal_gen_tpu_torch.data.loader import Loader, setup_loaders
 from causal_gen_tpu_torch.pgm.train_pgm import (
     SETUPS,
@@ -43,15 +44,11 @@ from causal_gen_tpu_torch.pgm.train_pgm import (
     train_pgm,
 )
 from causal_gen_tpu_torch.train.experiment import MetricWriter, setup_directories, setup_logging
-
-JOINT_PLOT_NOTE = ("the joint plot of PGM samples against the data (sup_pgm on morphomnist) is "
-                   "not ported yet: it comes with utils/plots.py")
-
+from causal_gen_tpu_torch.utils.plots import plot_joint
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="Train a PGM / the anticausal predictors with PyTorch. Note: "
-                    + JOINT_PLOT_NOTE + ".")
+        description="Train a PGM / the anticausal predictors with PyTorch.")
     p.add_argument("--dataset", default="morphomnist")
     p.add_argument("--setup", default="sup_pgm", choices=list(SETUPS))
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -130,7 +127,8 @@ def run_semi_sup(cfg: PGMConfig, model: torch.nn.Module, datasets: Dict, args,
 def main(argv: Optional[list] = None, datasets: Optional[Dict] = None
          ) -> Tuple[PGMTrainState, Dict[str, float]]:
     """Train; returns (state, history). ``datasets`` replaces the files under
-    ``--data_dir`` with in-memory ``ArrayDataset``s (train/valid)."""
+    ``--data_dir`` with in-memory ``ArrayDataset``s (train/valid), or is a
+    function of the data config (``data_config``) that makes them."""
     args, _ = build_parser().parse_known_args(argv)
     device = resolve_device(args.device)
     cfg = PGMConfig(dataset=args.dataset, setup=args.setup, seed=args.seed, epochs=args.epochs,
@@ -144,8 +142,7 @@ def main(argv: Optional[list] = None, datasets: Optional[Dict] = None
     logger = setup_logging(save_dir)
     writer = MetricWriter(save_dir)
     writer.add_hparams(cfg.to_dict())
-    if datasets is None:
-        datasets = setup_datasets(data_config(cfg, args))
+    datasets = make_datasets(datasets, data_config(cfg, args))
     loaders = setup_loaders(datasets, cfg.bs, seed=cfg.seed, max_batches=args.max_batches,
                             concat_pa=False)
     model = build_pgm(cfg, device)
@@ -161,7 +158,14 @@ def main(argv: Optional[list] = None, datasets: Optional[Dict] = None
             writer.add_scalars(metrics, cfg.epochs, prefix="eval/")
             history = {**history, **{f"eval/{k}": v for k, v in metrics.items()}}
         elif cfg.dataset == "morphomnist":
-            logger.info("not written: %s", JOINT_PLOT_NOTE)
+            # sampled against data morphometrics (reference train_pgm.py:502-504)
+            with torch.no_grad():
+                samples = state.ema.sample(512, generator=torch.Generator().manual_seed(cfg.seed))
+            plot_joint(samples["thickness"].cpu().numpy(), samples["intensity"].cpu().numpy(),
+                       "pgm samples", save_path=os.path.join(save_dir, "joint_samples.png"))
+            dt = datasets["train"]
+            plot_joint(dt.attrs["thickness"], dt.attrs["intensity"], "data",
+                       save_path=os.path.join(save_dir, "joint_data.png"))
     finally:
         writer.close()
     return state, history

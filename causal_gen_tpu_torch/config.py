@@ -2,11 +2,13 @@
 
 The port keeps its own copy so that it imports nothing of the JAX package.
 Every field, default and registry entry is the same, so an ``hparams.json``
-written by the JAX trainer loads here with ``Config.from_dict``. Fields that
-only steer the JAX programs (``use_pallas``, ``stage_scan``, ``remat``,
-``steps_per_call``, the mesh) are kept for that reason and are not read by
-the port; the port's model classes raise on the ones that would change the
-model it builds (see ``models/hvae.py``).
+written by the JAX trainer loads here with ``Config.from_dict``. ``remat``
+and ``remat_min_res`` pick what the HVAE recomputes in the backward, and
+``stage_scan`` (a scan layout in JAX; the port runs every block unrolled)
+only picks the remat unit (see ``models/hvae.py``). Fields that only steer
+the JAX programs (``use_pallas``, ``steps_per_call``, the mesh) are kept for
+that reason and are not read by the port; the port's model classes raise on
+the ones that would change the model it builds.
 """
 
 from __future__ import annotations

@@ -14,7 +14,7 @@ from __future__ import annotations
 import csv
 import os
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -207,31 +207,58 @@ def _ukbb_attr(v: np.ndarray, k: str, context_norm: str) -> np.ndarray:
     return v.astype(np.float32)
 
 
+def _ukbb_png_name(row: Dict[str, str]) -> str:
+    return (f"{int(float(row['eid']))}_"
+            f"{'T1' if float(row['mri_seq']) == 0.0 else 'T2_FLAIR'}"
+            "_unbiased_brain_rigid_to_mni.png")
+
+
+def _read_csv(path: str) -> List[Dict[str, str]]:
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+Tables = Dict[str, Tuple[List[Dict[str, Any]], np.ndarray]]  # split -> (rows, images)
+
+
+def _at_res(images: np.ndarray, res: int) -> np.ndarray:
+    if images.shape[1:3] != (res, res):
+        raise ValueError(f"images of {images.shape[1:3]} for input_res {res}: resizing needs "
+                         "the files (PIL)")
+    return images
+
+
+def ukbb_from_rows(cfg: Config, tables: Tables) -> Dict[str, ArrayDataset]:
+    """UK Biobank datasets from each split's CSV rows (``brain_csv``'s
+    columns, as strings or numbers) and its images, (N, res, res) uint8 at
+    ``cfg.input_res``: the attributes of ``cfg.parents_x`` in
+    ``cfg.context_norm``, the train split augmented."""
+    res = cfg.input_res
+    out = {}
+    for split, (rows, images) in tables.items():
+        columns = list(cfg.parents_x)
+        attrs = {k: _ukbb_attr(np.array([float(r[k]) for r in rows], np.float32), k,
+                               cfg.context_norm) for k in columns}
+        ds = ArrayDataset(images=_at_res(images, res)[..., None], attrs=attrs,
+                          columns=tuple(columns))
+        if split == "train":
+            # torchvision RandomCrop padding=[2*pad, pad]: left/right by 2*pad,
+            # top/bottom by pad (reference datasets.py:106-109)
+            ds.aug = ("random_crop_flip", (res, res), (cfg.pad, 2 * cfg.pad), cfg.hflip)
+        out[split] = ds
+    return out
+
+
 def ukbb(cfg: Config, data_dir: Optional[str] = None) -> Dict[str, ArrayDataset]:
     """train/valid/test from ``brain_csv/<split>.csv`` and the 192x192 PNGs
     under ``thumbs_192x192/`` (reference datasets.py:22-135)."""
     root = data_dir or cfg.data_dir
-    res = cfg.input_res
-
-    def build(split: str, train: bool) -> ArrayDataset:
-        with open(os.path.join(root, "brain_csv", split + ".csv"), newline="") as f:
-            rows = list(csv.DictReader(f))
-        columns = list(cfg.parents_x)
-        attrs = {k: _ukbb_attr(np.array([float(r[k]) for r in rows], np.float32), k,
-                               cfg.context_norm) for k in columns}
-        paths = [os.path.join(root, "thumbs_192x192",
-                              f"{int(float(r['eid']))}_"
-                              f"{'T1' if float(r['mri_seq']) == 0.0 else 'T2_FLAIR'}"
-                              "_unbiased_brain_rigid_to_mni.png") for r in rows]
-        ds = ArrayDataset(images=_load_png_batch(paths, res)[..., None], attrs=attrs,
-                          columns=tuple(columns))
-        if train:
-            # torchvision RandomCrop padding=[2*pad, pad]: left/right by 2*pad,
-            # top/bottom by pad (reference datasets.py:106-109)
-            ds.aug = ("random_crop_flip", (res, res), (cfg.pad, 2 * cfg.pad), cfg.hflip)
-        return ds
-
-    return {s: build(s, s == "train") for s in ("train", "valid", "test")}
+    tables: Tables = {}
+    for split in ("train", "valid", "test"):
+        rows = _read_csv(os.path.join(root, "brain_csv", split + ".csv"))
+        paths = [os.path.join(root, "thumbs_192x192", _ukbb_png_name(r)) for r in rows]
+        tables[split] = (rows, _load_png_batch(paths, cfg.input_res))
+    return ukbb_from_rows(cfg, tables)
 
 
 # ---------------------------------------------------------------------------
@@ -241,19 +268,15 @@ def ukbb(cfg: Config, data_dir: Optional[str] = None) -> Dict[str, ArrayDataset]
 MIMIC_DISEASES = ("No Finding", "Pleural Effusion")
 
 
-def mimic(cfg: Config, data_dir: Optional[str] = None) -> Dict[str, ArrayDataset]:
-    """train/valid/test from ``meta/<split>.csv`` and the PNGs under ``data/``
-    (causal_gen_tpu/data/datasets.py:277-314): the rows whose ``disease`` is
-    "No Finding" or "Pleural Effusion", each image resized bilinearly to
-    ``input_res``; age -> age / 100 * 2 - 1, race -> one-hot(3), sex as read,
-    finding = Pleural Effusion. No augmentation, as in the JAX reader."""
-    root = data_dir or cfg.data_dir
-    res = cfg.input_res
-
-    def build(split: str) -> ArrayDataset:
-        with open(os.path.join(root, "meta", split + ".csv"), newline="") as f:
-            rows = [r for r in csv.DictReader(f) if r["disease"] in MIMIC_DISEASES]
-        paths = [os.path.join(root, "data", r["path_preproc"]) for r in rows]
+def mimic_from_rows(cfg: Config, tables: Tables) -> Dict[str, ArrayDataset]:
+    """MIMIC datasets from each split's ``meta`` CSV rows and their images,
+    (N, res, res) uint8 at ``cfg.input_res``: the rows whose ``disease`` is
+    "No Finding" or "Pleural Effusion"; age -> age / 100 * 2 - 1, race ->
+    one-hot(3), sex as read, finding = Pleural Effusion."""
+    out = {}
+    for split, (rows, images) in tables.items():
+        keep = [i for i, r in enumerate(rows) if r["disease"] in MIMIC_DISEASES]
+        rows = [rows[i] for i in keep]
         attrs = {
             "age": np.array([float(r["age"]) for r in rows], np.float32) / 100 * 2 - 1,
             "sex": np.array([float(r["sex_label"]) for r in rows], np.float32),
@@ -261,10 +284,24 @@ def mimic(cfg: Config, data_dir: Optional[str] = None) -> Dict[str, ArrayDataset
             "finding": np.array([r["disease"] == "Pleural Effusion" for r in rows],
                                 np.float32),
         }
-        return ArrayDataset(images=_load_png_batch(paths, res)[..., None], attrs=attrs,
-                            columns=tuple(cfg.parents_x))
+        out[split] = ArrayDataset(images=_at_res(images[keep], cfg.input_res)[..., None],
+                                  attrs=attrs, columns=tuple(cfg.parents_x))
+    return out
 
-    return {s: build(s) for s in ("train", "valid", "test")}
+
+def mimic(cfg: Config, data_dir: Optional[str] = None) -> Dict[str, ArrayDataset]:
+    """train/valid/test from ``meta/<split>.csv`` and the PNGs under ``data/``
+    (causal_gen_tpu/data/datasets.py:277-314), each image resized bilinearly
+    to ``input_res`` (``mimic_from_rows``). No augmentation, as in the JAX
+    reader."""
+    root = data_dir or cfg.data_dir
+    tables: Tables = {}
+    for split in ("train", "valid", "test"):
+        rows = [r for r in _read_csv(os.path.join(root, "meta", split + ".csv"))
+                if r["disease"] in MIMIC_DISEASES]
+        paths = [os.path.join(root, "data", r["path_preproc"]) for r in rows]
+        tables[split] = (rows, _load_png_batch(paths, cfg.input_res))
+    return mimic_from_rows(cfg, tables)
 
 
 # ---------------------------------------------------------------------------
@@ -323,3 +360,12 @@ def setup_datasets(cfg: Config, data_dir: Optional[str] = None) -> Dict[str, Arr
             return make(cfg, data_dir)
     raise NotImplementedError(f"no dataset for config '{cfg.name}' in the port yet "
                               f"(have {sorted(DATASETS)})")
+
+
+def make_datasets(given, cfg: Config) -> Dict[str, ArrayDataset]:
+    """The datasets a CLI runs on: ``given`` when it is a dict, ``given(cfg)``
+    when it is a function of the run's data config (in-memory data, e.g.
+    ``tools/e2e_synth_torch.py``'s), else the files ``cfg`` names."""
+    if given is None:
+        return setup_datasets(cfg)
+    return given(cfg) if callable(given) else given

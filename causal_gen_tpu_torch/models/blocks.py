@@ -15,6 +15,12 @@ which is what ``make_conv`` sets.
 Compute dtype: with ``dtype=torch.bfloat16`` the parameters stay float32 and
 each conv casts its input, weight and bias to bf16 and returns bf16, as
 flax's ``nn.Conv(dtype=...)`` does (``conv_in``).
+
+Remat: a ``Block`` with ``remat`` set runs under the non-reentrant
+``torch.utils.checkpoint`` where autograd records, as flax's ``nn.remat(Block)``
+(``models/remat.py``). The ``Encoder`` sets it on each block whose input
+resolution is at least ``remat_min_res`` (causal_gen_tpu/models/blocks.py:
+126-130); ``models/hvae.py`` on the decoder's.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
+from causal_gen_tpu_torch.models.remat import checkpointed
 from causal_gen_tpu_torch.ops.fused_block import fused_light_block
 
 # flax's lecun_normal draws a normal truncated at +-2 std, rescaled by this
@@ -96,6 +103,10 @@ class Block(nn.Module):
     ``torch.inference_mode()``: K2 has no gradient, as in JAX) and x comes in
     the compute dtype; the kernel on CUDA, its plain version on the CPU.
     Otherwise it runs its convs one by one (every training step does).
+
+    ``remat`` (set after construction; it holds no parameter) recomputes the
+    block in the backward instead of keeping its activations. The first run
+    records under autograd, so a rematerialised block never takes K2 there.
     """
 
     def __init__(self, in_width: int, bottleneck: int, out_width: int,
@@ -130,6 +141,7 @@ class Block(nn.Module):
         # 3-D light block runs its Conv3d pair
         self.k2_covered = (nd == 2 and version == "light" and residual and k == 3
                            and self.width_proj is None)
+        self.remat = False
 
     def init_extra_(self, generator: Optional[torch.Generator]) -> None:
         last = self._convs[-1].weight
@@ -144,6 +156,11 @@ class Block(nn.Module):
                 and x.dtype == (self.dtype or torch.float32))
 
     def forward(self, x: Tensor) -> Tensor:
+        if self.remat:
+            return checkpointed(self._body, x)
+        return self._body(x)
+
+    def _body(self, x: Tensor) -> Tensor:
         dt = self.dtype
         if self.takes_k2(x):
             c1, c2 = self._convs
@@ -170,11 +187,13 @@ class Block(nn.Module):
 
 class Encoder(nn.Module):
     """Bottom-up encoder producing activations keyed by spatial resolution
-    (reference vae.py:87-134)."""
+    (reference vae.py:87-134). With ``remat`` each block whose input
+    resolution (its stage's) is at least ``remat_min_res`` is rematerialised."""
 
     def __init__(self, stages: Tuple, widths: Tuple[int, ...], bottleneck: int,
                  input_channels: int, version: Optional[str] = None,
-                 dtype: Optional[torch.dtype] = None, spatial_dims: int = 2):
+                 dtype: Optional[torch.dtype] = None, spatial_dims: int = 2,
+                 remat: bool = False, remat_min_res: int = 0):
         super().__init__()
         self.dtype = dtype
         self.spatial_dims = spatial_dims
@@ -184,17 +203,18 @@ class Encoder(nn.Module):
             if i == 0 and stage.n_blocks == 0 and stage.down_rate is None:
                 stem_width, stem_stride = widths[1], 2
                 continue
-            flat += [(widths[i], None) for _ in range(stage.n_blocks)]
+            flat += [(widths[i], None, stage.res) for _ in range(stage.n_blocks)]
             if stage.down_rate is not None:
-                flat += [(widths[i + 1], stage.down_rate)]
+                flat += [(widths[i + 1], stage.down_rate, stage.res)]
         self.stem = make_conv(input_channels, stem_width, 7, spatial_dims, stride=stem_stride)
         n = len(flat)
         blocks = []
-        for i, (width, d) in enumerate(flat):
+        for i, (width, d, res) in enumerate(flat):
             prev_width = flat[max(0, i - 1)][0]
             blocks.append(Block(prev_width, prev_width // bottleneck, width, down_rate=d,
                                 version=version, last_scale=float(math.sqrt(1.0 / n)),
                                 dtype=dtype, spatial_dims=spatial_dims))
+            blocks[-1].remat = remat and res >= remat_min_res
             self.add_module(f"blocks_{i}", blocks[-1])
         self._blocks = blocks
 

@@ -43,12 +43,28 @@ The variants of the JAX model (causal_gen_tpu/models/hvae.py):
 - ``spatial_dims=3``: NCDHW volumes through Conv3d blocks (``blocks.py``),
   r^3 biases, the KL summed over every spatial axis, a 3-D ``DGaussNet``.
 
-The JAX ``stage_scan`` layout is a compile device and has no counterpart
-here (``convert.unstack_decoder`` reads its checkpoints).
+The JAX ``stage_scan`` layout is a compile device: the port runs every
+block unrolled (``convert.unstack_decoder`` reads its checkpoints), and the
+flag only picks the remat unit, as in JAX. With ``cfg.remat``:
+
+- the encoder rematerialises each ``Block`` whose input resolution is at
+  least ``remat_min_res`` (``models/blocks.py``), whatever ``stage_scan``;
+- ``stage_scan`` off: each decoder block at ``res >= remat_min_res``
+  rematerialises its three ``Block``s (``prior``, ``posterior``, ``conv``;
+  causal_gen_tpu/models/hvae.py:80, 314-315); ``z_proj`` and
+  ``z_feat_proj`` stay plain and no draw happens inside a unit;
+- ``stage_scan`` on (both flagships): the unit is one whole block of a
+  scanned run (``plan_decoder_layout``; JAX's ``DecoderRunCell``,
+  :198-204, 321-334) at ``res >= remat_min_res``, its K1 draw inside, so the
+  recompute replays the draw (``models/remat.py::rematerialised``); the
+  blocks outside a run are not rematerialised.
+
+``cond_prior``'s dropout option is drawn once a pass, outside every unit.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -67,6 +83,7 @@ from causal_gen_tpu_torch.models.blocks import (
     upsample_nearest,
 )
 from causal_gen_tpu_torch.models.likelihoods import make_likelihood
+from causal_gen_tpu_torch.models.remat import rematerialised
 from causal_gen_tpu_torch.ops.distributions import sample_gaussian
 from causal_gen_tpu_torch.ops.sample_kl import fused_sample_kl
 
@@ -166,6 +183,42 @@ def plan_decoder_blocks(cfg: Config) -> List[Tuple[int, int]]:
     return stages
 
 
+def plan_decoder_layout(cfg: Config) -> List[Tuple]:
+    """The JAX ``stage_scan`` layout of the decoder's blocks
+    (causal_gen_tpu/models/hvae.py:161-195): ("single", i) | ("run", start,
+    length). A block joins a run when it has no resolution boundary on entry
+    and its in width equals its out width; runs of length 1 stay singles."""
+    stages = plan_decoder_blocks(cfg)
+    n = len(stages)
+    uniform = [i > 0 and stages[i - 1][0] == res and stages[min(n - 1, i + 1)][1] == width
+               for i, (res, width) in enumerate(stages)]
+    layout: List[Tuple] = []
+    i = 0
+    while i < n:
+        if not uniform[i]:
+            layout.append(("single", i))
+            i += 1
+            continue
+        j = i
+        while j < n and uniform[j]:
+            j += 1
+        layout.append(("run", i, j - i) if j - i >= 2 else ("single", i))
+        i = j
+    return layout
+
+
+def remat_cells(cfg: Config) -> List[int]:
+    """The decoder blocks that are a remat unit of their own: under
+    ``cfg.remat`` and ``cfg.stage_scan``, each block of a run whose
+    resolution is at least ``remat_min_res`` (JAX remats the scanned cell,
+    causal_gen_tpu/models/hvae.py:321-334)."""
+    if not (cfg.remat and cfg.stage_scan):
+        return []
+    stages = plan_decoder_blocks(cfg)
+    return [i for e in plan_decoder_layout(cfg) if e[0] == "run"
+            and stages[e[1]][0] >= cfg.remat_min_res for i in range(e[1], e[1] + e[2])]
+
+
 class Decoder(nn.Module):
     """Top-down decoder (reference vae.py:195-319), one module per block."""
 
@@ -186,7 +239,12 @@ class Decoder(nn.Module):
                 cond_prior=cfg.cond_prior, q_correction=cfg.q_correction, spatial_dims=nd,
             ))
             self.add_module(f"blocks_{i}", blocks[-1])
+            if cfg.remat and not cfg.stage_scan and res >= cfg.remat_min_res:
+                for sub in ("prior", "posterior", "conv"):
+                    if hasattr(blocks[-1], sub):
+                        getattr(blocks[-1], sub).remat = True
         self._blocks = blocks
+        self._cells = frozenset(remat_cells(cfg))
         # per-resolution learned biases (reference vae.py:211-218), r^nd each
         all_res = sorted(set(r for r, _ in stages))
         for i, r in enumerate(all_res):
@@ -243,40 +301,59 @@ class Decoder(nn.Module):
         pa_sto = self._prior_parents(pa, train, noise, generator)
         stats: List[Dict[str, Any]] = []
         for i, block in enumerate(self._blocks):
-            res = block.resolution
-            if h.shape[2] < res:
-                h = self._up(h, res)
-            if block.q_correction:
-                p_input = h
-            else:  # the prior depends on the previous prior latent only
-                p_input = self._up(z, res) if z.shape[2] < res else z
-            p_loc, p_logscale, p_feat = block.forward_prior(p_input, pa_sto, t)
-            if block.stochastic:
-                if acts is not None:
-                    q_loc, q_logscale = block.forward_posterior(h, acts[res], pa, t)
-                    z, kl = fused_sample_kl(
-                        q_loc.contiguous(), q_logscale.contiguous(), p_loc.contiguous(),
-                        p_logscale.contiguous(), eps=_next(noise), generator=generator)
-                    stat: Dict[str, Any] = dict(kl=kl.sum(dim=tuple(range(2, kl.dim()))))
-                    if abduct:  # z* needs the q stats under cond_prior (vae.py:271-276)
-                        stat["z"] = (dict(z=z, q_loc=q_loc, q_logscale=q_logscale)
-                                     if block.cond_prior else z)
-                    stats.append(stat)
-                elif latents[i] is not None:
-                    z = latents[i]
-                else:
-                    z = sample_gaussian(p_loc, p_logscale, _next(noise), generator)
-                    if abduct and block.cond_prior:  # p for the mixture abduction
-                        stats.append(dict(z=dict(p_loc=p_loc, p_logscale=p_logscale)))
+            act = None if acts is None else acts[block.resolution]
+            step = functools.partial(self._block_step, i, t=t, abduct=abduct)
+            if i in self._cells:
+                h, z, stat = rematerialised(step, noise, generator, h, z, pa, pa_sto, act,
+                                            latents[i])
             else:
-                z = p_loc
-            h = h + p_feat
-            h = h + conv_in(block.z_proj, _cat([z, _bcast_pa(pa, z)], self.dtype), self.dtype)
-            h = block.conv(h)
-            if block.z_feat_proj is not None:
-                # z independent of pa for the next prior (vae.py:297-300)
-                z = conv_in(block.z_feat_proj, _cat([z, p_feat], self.dtype), self.dtype)
+                h, z, stat = step(h, z, pa, pa_sto, act, latents[i], noise=noise,
+                                  generator=generator)
+            if stat is not None:
+                stats.append(stat)
         return h, stats
+
+    def _block_step(self, i: int, h: Tensor, z: Tensor, pa: Tensor, pa_sto: Tensor,
+                    act: Optional[Tensor], latent: Optional[Tensor], t: Optional[float],
+                    abduct: bool, noise: Noise, generator: Optional[torch.Generator]
+                    ) -> Tuple[Tensor, Tensor, Optional[Dict[str, Any]]]:
+        """Block ``i`` on the residual stream ``h`` and the prior's input
+        ``z``: (h, z, its stats or None). A ``stage_scan`` remat unit."""
+        block = self._blocks[i]
+        res = block.resolution
+        if h.shape[2] < res:
+            h = self._up(h, res)
+        if block.q_correction:
+            p_input = h
+        else:  # the prior depends on the previous prior latent only
+            p_input = self._up(z, res) if z.shape[2] < res else z
+        p_loc, p_logscale, p_feat = block.forward_prior(p_input, pa_sto, t)
+        stat: Optional[Dict[str, Any]] = None
+        if block.stochastic:
+            if act is not None:
+                q_loc, q_logscale = block.forward_posterior(h, act, pa, t)
+                z, kl = fused_sample_kl(
+                    q_loc.contiguous(), q_logscale.contiguous(), p_loc.contiguous(),
+                    p_logscale.contiguous(), eps=_next(noise), generator=generator)
+                stat = dict(kl=kl.sum(dim=tuple(range(2, kl.dim()))))
+                if abduct:  # z* needs the q stats under cond_prior (vae.py:271-276)
+                    stat["z"] = (dict(z=z, q_loc=q_loc, q_logscale=q_logscale)
+                                 if block.cond_prior else z)
+            elif latent is not None:
+                z = latent
+            else:
+                z = sample_gaussian(p_loc, p_logscale, _next(noise), generator)
+                if abduct and block.cond_prior:  # p for the mixture abduction
+                    stat = dict(z=dict(p_loc=p_loc, p_logscale=p_logscale))
+        else:
+            z = p_loc
+        h = h + p_feat
+        h = h + conv_in(block.z_proj, _cat([z, _bcast_pa(pa, z)], self.dtype), self.dtype)
+        h = block.conv(h)
+        if block.z_feat_proj is not None:
+            # z independent of pa for the next prior (vae.py:297-300)
+            z = conv_in(block.z_feat_proj, _cat([z, p_feat], self.dtype), self.dtype)
+        return h, z, stat
 
 
 class HVAE(nn.Module):
@@ -301,7 +378,8 @@ class HVAE(nn.Module):
         self.cond_prior = cfg.cond_prior
         self.encoder = Encoder(cfg.enc_stages, cfg.model_widths, cfg.bottleneck,
                                cfg.input_channels, cfg.block_version, compute_dtype(cfg),
-                               cfg.spatial_dims)
+                               cfg.spatial_dims, remat=cfg.remat,
+                               remat_min_res=cfg.remat_min_res)
         self.decoder = Decoder(cfg)
         self.likelihood = make_likelihood(cfg.input_channels, cfg.model_widths[0],
                                           cfg.x_like, cfg.std_init, cfg.spatial_dims)

@@ -27,7 +27,7 @@ module does. Semantics kept from the JAX package:
   and are recomputed in the backward, as ``jax.checkpoint`` wraps them
   (dscm.py:141-210). The recompute replays the pass's draws: the injected
   ones it took from ``noise`` and the state of ``generator`` it began
-  with (``_rematerialised``), since checkpoint restores only PyTorch's
+  with (``models/remat.py::rematerialised``), since checkpoint restores only PyTorch's
   default generators and K1 takes its Philox seed from ``generator``.
 
 ``lmbda``, the Lagrange multiplier, is a parameter that takes a gradient:
@@ -38,13 +38,13 @@ forward_latents).
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Tuple
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 import torch
 from torch import Tensor
-from torch.utils.checkpoint import checkpoint
 
 from causal_gen_tpu_torch.config import Config
+from causal_gen_tpu_torch.models.remat import rematerialised
 from causal_gen_tpu_torch.ops.soft_morph import soft_intensity, soft_thickness
 from causal_gen_tpu_torch.utils.normalization import MORPHOMNIST_MIN_MAX, get_attr_max_min
 
@@ -78,40 +78,6 @@ def vae_preprocess(cfg: Config, pa: Dict[str, Tensor]) -> Tensor:
         pa = ukbb_preprocess(pa)
     cols = [pa[k] if pa[k].ndim > 1 else pa[k][..., None] for k in cfg.parents_x]
     return torch.cat(cols, dim=1).to(torch.float32)
-
-
-def _recording(noise: Iterator[Tensor], taken: List[Tensor]) -> Iterator[Tensor]:
-    for d in noise:
-        taken.append(d)
-        yield d
-
-
-def _rematerialised(fn: Callable, noise: Optional[Iterator[Tensor]],
-                    generator: Optional[torch.Generator], *args):
-    """``fn(*args, noise=, generator=)`` under ``torch.utils.checkpoint``
-    (non-reentrant): its activations are dropped and recomputed in the
-    backward. The recompute takes the same draws as the first run: the
-    injected draws that run took from ``noise``, and ``generator`` set back
-    to the state that run began with (then to where it was)."""
-    start = None if generator is None else generator.get_state()
-    taken: List[Tensor] = []
-    runs = [0]
-
-    def run(*a):
-        runs[0] += 1
-        if runs[0] == 1:
-            return fn(*a, noise=None if noise is None else _recording(noise, taken),
-                      generator=generator)
-        now = None if generator is None else generator.get_state()
-        if generator is not None:
-            generator.set_state(start)
-        try:
-            return fn(*a, noise=None if noise is None else iter(taken), generator=generator)
-        finally:
-            if generator is not None:
-                generator.set_state(now)
-
-    return checkpoint(run, *args, use_reentrant=False)
 
 
 class DSCM:
@@ -189,7 +155,7 @@ class DSCM:
 
         def call(fn, *args):
             if self.remat:
-                return _rematerialised(fn, noise, generator, *args)
+                return rematerialised(fn, noise, generator, *args)
             return fn(*args, noise=noise, generator=generator)
 
         vae_out = call(fact_fn, x, _pa)

@@ -11,6 +11,9 @@ step to decide whether to update. A skipped step advances neither ``step``,
 the lr schedule, AdamW's moments nor ``ema_updates``, and adds one to
 ``skipped``. ``steps_per_call`` has no counterpart: every step is one call.
 Posterior draws go through K1, and a DMoL head's loss through K3, on the card.
+With ``cfg.remat`` the model recomputes its rematerialised blocks in each
+microbatch's backward, which follows that microbatch's forward, so a
+recompute replays that microbatch's own draws (``models/remat.py``).
 
 Batches come from ``data/loader.py`` as numpy arrays, x uint8 NHWC (NDHWC for
 volumes); they cross to the device as uint8 NCHW (NCDHW) and are scaled to
@@ -140,9 +143,10 @@ def train(cfg: Config, model: nn.Module, loaders: Dict[str, Any], save_dir: Opti
           epochs: Optional[int] = None,
           callback: Optional[Callable[[int, TrainState, Dict[str, float]], None]] = None,
           init_state: Optional[TrainState] = None) -> Tuple[TrainState, Dict[str, float]]:
-    """The whole training run (reference trainer.py:24-169 without the
-    visualisations). ``model`` is the initialised HVAE on its device;
-    ``init_state`` resumes from a loaded checkpoint."""
+    """The whole training run (reference trainer.py:24-169; the
+    visualisations are ``cli/main.py``'s ``callback``). ``model`` is the
+    initialised HVAE on its device; ``init_state`` resumes from a loaded
+    checkpoint."""
     if init_state is not None:
         state = init_state
     else:

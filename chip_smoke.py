@@ -3,6 +3,7 @@
 plain versions.
 
     python3 chip_smoke.py [--json PATH] [--parent DIR]
+    python3 chip_smoke.py --phases remat,viz,e2e [--json PATH]
     python3 chip_smoke.py --tune-k2
 
 Phases, one progress line each:
@@ -54,8 +55,9 @@ Phases, one progress line each:
                (and at bs 256 for morphomnist); device time under the profiler
   10. entry  - train() through cli.main on each configuration with an
                in-memory dataset made from the seed: 2 epochs of 3 batches, one
-               evaluation, a checkpoint written and read back; the launch
-               counts around it are the kernels line's
+               evaluation, a checkpoint written and read back (--viz_freq 0:
+               the viz callback is held in phase viz); the launch counts
+               around it are the kernels line's
   11. ukbb   - DSCM.forward do(ventricle_volume) on ukbb192 in bf16 at full
                width and depth, bs 32, weights and batch from a seed, under
                inference_mode: the main path with K2's and K1's launch counts
@@ -149,14 +151,41 @@ Phases, one progress line each:
                morphomnist 40 + 40; the ukbb192 eval step under
                inference_mode K2 200 and K1 80), the median of 10 updates,
                peak memory and the profiler; cli.train_cf on the card (1
-               epoch of 2 updates with the valid sweeps, then --resume)
-  23. turns  - with --parent DIR (an earlier tree of the repository, unpacked):
+               epoch of 2 updates with the valid sweeps and the panel's
+               forward, then --resume)
+  23. remat  - the flagships' training setup: block remat (stage_scan: the
+               decoder blocks of a run are the unit, their draws replayed).
+               ukbb192 in float32 at bs 2 (TF32 off, cuDNN deterministic):
+               gradients remat on against off within 1e-6 rel with injected
+               draws and with a generator, the first step card against CPU
+               (1e-4); bf16 train steps: ukbb192 at bs 128 with remat from
+               48^2 (median of 10, images/s, peak memory), at bs 32 with
+               remat on and off, at bs 128 without remat where 4 x the bs-32
+               peak leaves 8 GB of the card free; the ukbb192 flagship's own
+               HVAE (z_max_res 96) at bs 128 with and without remat; mimic192
+               at bs 128 with remat everywhere; each step's K1 / K1-bwd
+               launches against the config's, K2 none; the ukbb192 bs-128
+               remat step profiled
+  24. viz    - utils/viz.py::write_images on ukbb192 (bf16: K2 and K1),
+               morphomnist with cond_prior and cmnist with the DMoL head: the
+               float32 grid card against the CPU plain path on the same
+               weights and draws (uint8 within 1; ukbb192 at bs 2, the others
+               at the viz batch), then the viz batch cli.main draws with its
+               launches and time
+  25. e2e    - tools/e2e_synth_torch.py at the ukbb192 flagship config
+               (192^2, bf16, stage_scan, remat from 48^2), 16 per split, bs 8,
+               1 epoch, 2 CF updates, one eval seed: each of the four stages
+               on its own, reading the last one's checkpoint, with its
+               seconds and launches
+  26. turns  - with --parent DIR (an earlier tree of the repository, unpacked):
                that tree's K2 float32 kernel at every ukbb shape, K4 in both
                modes and ukbb64 forward against this tree's, in turns (parent,
                this, this, parent), each a process of its own; K4's output
                digests must agree
 With --tune-k2 it only times the float32 K2 kernel's best candidate launches
-at every ukbb shape (tune_k2) and prints the fastest as a table.
+at every ukbb shape (tune_k2) and prints the fastest as a table. With
+--phases it runs only the phases named (after device and build) and prints
+no kernels or result line.
 The last two lines are the kernels JSON and the result JSON. Any failure
 exits non-zero without the result line; the whole run stops itself after
 DEADLINE_S. Needs a CUDA device and the rest of the repository; reads no data
@@ -3262,6 +3291,8 @@ def synth_parents(cfg, rng, n):
     for k in cfg.parents_x:
         if k in ("digit", "colour"):
             cols.append(np.eye(10, dtype=np.float32)[rng.integers(0, 10, n)])
+        elif k == "race":  # MIMIC's one-hot of 3
+            cols.append(np.eye(3, dtype=np.float32)[rng.integers(0, 3, n)])
         else:
             cols.append(rng.uniform(-1, 1, (n, 1)).astype(np.float32))
     return np.concatenate(cols, axis=1)
@@ -3451,8 +3482,10 @@ def phase_entry(name):
     n_batches = 3
     datasets = synth_datasets(cfg, n_batches * BS, 2 * BS)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_entry_") as save_dir:
+        # the viz callback is held in phase viz; its early cadence would draw here
         argv = ["--hps", cfg.name, "--device", "cuda", "--epochs", "2", "--eval_freq", "2",
-                "--bs", str(BS), "--max_batches", str(n_batches), "--save_dir", save_dir]
+                "--bs", str(BS), "--max_batches", str(n_batches), "--save_dir", save_dir,
+                "--viz_freq", "0"]
         if cfg.x_like != "diag_dgauss":
             argv += ["--x_like", cfg.x_like]
         reset_counts()
@@ -3466,7 +3499,7 @@ def phase_entry(name):
         if not all(np.isfinite(history[k]) for k in ("train_elbo", "valid_elbo", "valid_nll")):
             raise AssertionError(f"entry {name}: history not finite: {history}")
         saved_cfg, payload, extra = load_checkpoint(os.path.join(save_dir, "checkpoint"))
-        if saved_cfg != cfg.replace(epochs=2, eval_freq=2) or extra.get("epoch") != 2:
+        if saved_cfg != cfg.replace(epochs=2, eval_freq=2, viz_freq=0) or extra.get("epoch") != 2:
             raise AssertionError(f"entry {name}: checkpoint config or extras differ: {extra}")
         restored = restore_train_state(saved_cfg, HVAE(saved_cfg, device="cuda"), payload)
         for a, b in ((state.model, restored.model), (state.ema, restored.ema)):
@@ -3795,10 +3828,10 @@ def cf_datasets(n_train, n_valid, seed):
 
 def cf_cli_run(save_dir, cf):
     """cli.train_cf on the card from seeded morphomnist mechanisms written as
-    the port's checkpoints: 1 epoch of 2 updates with the valid sweeps, then
-    --resume for a second; the launches of the first run against the path's
-    (K1 on each update's 2 passes and each sweep batch's 2, K1-bwd on each
-    update's)."""
+    the port's checkpoints: 1 epoch of 2 updates with the valid sweeps and the
+    counterfactual panel, then --resume for a second; the launches of the
+    first run against the path's (K1 on each update's 2 passes, each sweep
+    batch's 2 and the panel's 2, K1-bwd on each update's)."""
     import numpy as np
     import torch
 
@@ -3836,7 +3869,9 @@ def cf_cli_run(save_dir, cf):
     secs = time.perf_counter() - t0
     counts = read_counts()
     sweeps = len(state.dscm.pgm.dag_variables) + 1
-    want = dict(dict.fromkeys(counts, 0), fused_sample_kl=2 * n_sto * n_batches * (1 + sweeps),
+    # the panel after the sweeps is one more eval forward (cf_particles 1)
+    want = dict(dict.fromkeys(counts, 0),
+                fused_sample_kl=2 * n_sto * (n_batches * (1 + sweeps) + 1),
                 fused_sample_kl_bwd=2 * n_sto * n_batches)
     if counts != want or state.step + state.skipped != n_batches or \
             not all(math.isfinite(v) for v in hist.values()):
@@ -3934,6 +3969,418 @@ def phase_cf_train():
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice 10: the flagship training setup (block remat at bs 128), the
+# visualisations and the three stages end to end
+# ---------------------------------------------------------------------------
+
+REMAT_BS = 128  # the flagships' HVAE batch (checkpoints/*_flagship/vae/hparams.json)
+# the flagships' remat (the same files): ukbb192 from 48^2 up, mimic192's
+# GELU body everywhere; stage_scan picks JAX's unit, a decoder block of a run
+REMAT_FLAGS = {"ukbb192": {"stage_scan": True, "remat": True, "remat_min_res": 48},
+               "mimic192": {"stage_scan": True, "remat": True, "remat_min_res": 0}}
+# where the ukbb192 flagship (checkpoints/ukbb192_flagship/vae/hparams.json)
+# departs from the registry's ukbb192 in a field the step reads
+UKBB_FLAGSHIP = {"z_max_res": 96, "beta": 5.0, "posterior_init_scale": 0.0}
+FREE_GB = 8.0  # remat off at bs 128 runs only where it would leave this much free
+REMAT_TIMED = 10  # steps a bs-128 ukbb192 median is taken over
+
+
+def remat_config(name, dtype="bfloat16", bs=REMAT_BS, remat=True, flagship=False):
+    """The flagship's HVAE configuration with its remat flags: ukbb192 (the
+    registry's, or with ``flagship`` the flagship's z_max_res 96, beta and
+    posterior init) or mimic192 (``mimic_config``), at ``bs``."""
+    cfg = (ukbb_config if name == "ukbb192" else mimic_config)(dtype, bs)
+    if flagship:
+        cfg = cfg.replace(**UKBB_FLAGSHIP)
+    return cfg.replace(**REMAT_FLAGS[name]).replace(remat=remat)
+
+
+def remat_expected(cfg):
+    """The launches of one train step: K1 on every stochastic block forward
+    and once more for each stochastic block of a rematerialised cell (the
+    recompute replays its draw), K1-bwd once on each; nothing else."""
+    from causal_gen_tpu_torch.models.hvae import plan_decoder_blocks, remat_cells
+
+    stages = plan_decoder_blocks(cfg)
+    cells = sum(stages[i][0] <= cfg.z_max_res for i in remat_cells(cfg))
+    want = expected_counts(cfg, 1)
+    want["fused_sample_kl"] += cells
+    return want
+
+
+def _grads_of(model):
+    import torch
+
+    return {k: (p.grad if p.grad is not None else torch.zeros_like(p)).float()
+            for k, p in model.named_parameters()}
+
+
+def remat_grads(cfg, bs, source, seed, device="cuda"):
+    """One ELBO's gradients (train=True) with remat off and on, from one
+    seeded model, batch and draws: injected normals (``source`` "injected")
+    or a CPU generator of one seed; cuDNN deterministic. Returns the largest
+    error relative to each tensor's largest value and each pass's
+    launches."""
+    import numpy as np
+    import torch
+
+    from causal_gen_tpu_torch.models.hvae import HVAE
+    from causal_gen_tpu_torch.train.vae_trainer import preprocess_x, to_device
+
+    dev = torch.device(device)
+    rng = np.random.default_rng(seed)
+    c = cfg.replace(bs=bs)
+    batch = to_device(synth_batch(c, rng), dev)
+    draws = [rng.standard_normal((bs, c.z_dim, r, r)).astype(np.float32) for r in k1_res(c)]
+    state = HVAE(c.replace(remat=False), device="cpu",
+                 generator=torch.Generator().manual_seed(SEED)).state_dict()
+    grads, counts = {}, {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for on in (False, True):
+            m = HVAE(c.replace(remat=on), device=dev)
+            m.load_state_dict(state)
+            kw = ({"noise": iter([torch.from_numpy(d).to(dev) for d in draws])}
+                  if source == "injected" else {"generator": torch.Generator().manual_seed(seed)})
+            reset_counts()
+            out = m(preprocess_x(batch["x"]), batch["pa"], beta=c.beta, train=True, **kw)
+            out["elbo"].backward()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            counts[on], grads[on] = read_counts(), _grads_of(m)
+            del m
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    err = max(((grads[True][k] - grads[False][k]).abs().max()
+               / grads[False][k].abs().max().clamp_min(1e-30)).item() for k in grads[False])
+    return {"max_rel_err": err, "launches_off": counts[False], "launches_on": counts[True]}
+
+
+def remat_step_card_vs_cpu(cfg, seed):
+    """The first train step's ELBO terms and grad norm, card against the CPU
+    plain path, from one seeded model, batch and injected draws."""
+    import numpy as np
+    import torch
+
+    from causal_gen_tpu_torch.models.hvae import HVAE
+    from causal_gen_tpu_torch.train.state import init_train_state
+    from causal_gen_tpu_torch.train.vae_trainer import to_device, train_step
+
+    rng = np.random.default_rng(seed)
+    cpu_m = HVAE(cfg, device="cpu", generator=torch.Generator().manual_seed(SEED))
+    gpu_m = HVAE(cfg, device="cuda")
+    gpu_m.load_state_dict(cpu_m.state_dict())
+    batch = synth_batch(cfg, rng)
+    noise = [rng.standard_normal((cfg.bs, cfg.z_dim, r, r)).astype(np.float32)
+             for r in k1_res(cfg)]
+    ms = {}
+    for d, m in (("cpu", cpu_m), ("cuda", gpu_m)):
+        dv = torch.device(d)
+        out = train_step(cfg, init_train_state(cfg, m), to_device(batch, dv),
+                         noise=[[torch.from_numpy(e).to(dv) for e in noise]])
+        ms[d] = {k: float(v) for k, v in out.items()}
+    return {k: abs(ms["cuda"][k] - ms["cpu"][k]) / abs(ms["cpu"][k])
+            for k in ("elbo", "nll", "kl", "grad_norm")}
+
+
+def remat_step_time(cfg, n_timed, seed, profile=False):
+    """``n_timed`` bf16 train steps of ``cfg`` after two, from seeded
+    weights: the median ms, images/s and the peak memory of the run; the
+    launches of the first step against ``remat_expected``; with
+    ``profile``, one more step under the profiler (busy share, kernels)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from causal_gen_tpu_torch.models.hvae import HVAE
+    from causal_gen_tpu_torch.train.state import init_train_state
+    from causal_gen_tpu_torch.train.vae_trainer import to_device, train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    st = init_train_state(cfg, HVAE(cfg, device="cuda",
+                                    generator=torch.Generator().manual_seed(SEED)))
+    b = to_device(synth_batch(cfg, np.random.default_rng(seed)), torch.device("cuda"))
+    gen = torch.Generator().manual_seed(seed)
+    reset_counts()
+    m = train_step(cfg, st, b, generator=gen)
+    torch.cuda.synchronize()
+    counts, want = read_counts(), remat_expected(cfg)
+    if counts != want or not math.isfinite(float(m["elbo"])):
+        raise AssertionError(f"{cfg.name} bs {cfg.bs} remat {cfg.remat}: launches {counts}, "
+                             f"expected {want}; {m}")
+    train_step(cfg, st, b, generator=gen)
+    times = []
+    for _ in range(n_timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(cfg, st, b, generator=gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(times)
+    out = {"bs": cfg.bs, "remat": cfg.remat, "remat_min_res": cfg.remat_min_res,
+           "step_ms": med, "step_ms_all": times, "images_per_s": cfg.bs / med * 1e3,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts,
+           "skipped": float(m["skipped"])}
+    if profile:
+        out["profile"] = profile_calls(lambda: train_step(cfg, st, b, generator=gen), 1, "step")
+    del st, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("remat", f"{cfg.name} {cfg.dtype} bs {cfg.bs} remat {cfg.remat} (min res "
+                 f"{cfg.remat_min_res}): median {med:.3f} ms over {n_timed} (min {min(times):.3f},"
+                 f" max {max(times):.3f}) = {out['images_per_s']:.1f} images/s; peak memory "
+                 f"{out['peak_mem_gb']:.2f} GB; launches {counts}")
+    return out
+
+
+def phase_remat():
+    """The flagships' training setup: block remat on the ukbb192 and
+    mimic192 HVAE train steps at bs 128 (bf16), ukbb192 at bs 32 with remat
+    on and off, remat off at bs 128 where it fits; float32 gradients with
+    remat on and off and card against CPU; no K2 in any step."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    c32 = remat_config("ukbb192", "float32", CHECK_BS)
+    out = {"grads": {}}
+    for src in ("injected", "generator"):
+        g = remat_grads(c32, CHECK_BS, src, SEED + 200)
+        off, on = g["launches_off"], g["launches_on"]
+        if g["max_rel_err"] > 1e-6 or on != remat_expected(c32) or off != expected_counts(c32, 1):
+            raise AssertionError(f"ukbb192 float32 remat on vs off ({src}): {g}")
+        out["grads"][src] = g
+        log("remat", f"ukbb192 float32 bs {CHECK_BS}, {src} draws: gradients remat on == off "
+                     f"within {g['max_rel_err']:.2e} rel; K1 {off['fused_sample_kl']} -> "
+                     f"{on['fused_sample_kl']}, K1-bwd {on['fused_sample_kl_bwd']}, K2 0")
+    rel = remat_step_card_vs_cpu(c32, SEED + 201)
+    if max(rel.values()) > 1e-4:
+        raise AssertionError(f"ukbb192 float32 remat step card vs CPU: {rel}")
+    out["card_vs_cpu_rel_err"] = rel
+    log("remat", "ukbb192 float32 remat step card == CPU plain path (TF32 off): "
+                 + ", ".join(f"{k} rel {v:.2e}" for k, v in rel.items()))
+
+    t = out["times"] = {}
+    t["ukbb192_bs32_remat"] = remat_step_time(remat_config("ukbb192", bs=32), 3, SEED + 202)
+    t["ukbb192_bs32_plain"] = remat_step_time(remat_config("ukbb192", bs=32, remat=False), 3,
+                                              SEED + 202)
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    need_gb = 4 * t["ukbb192_bs32_plain"]["peak_mem_gb"]
+    t["ukbb192_bs128_remat"] = remat_step_time(remat_config("ukbb192"), REMAT_TIMED, SEED + 203,
+                                               profile=True)
+    if total_gb - need_gb >= FREE_GB:
+        t["ukbb192_bs128_plain"] = remat_step_time(remat_config("ukbb192", remat=False), 5,
+                                                   SEED + 203)
+    else:
+        t["ukbb192_bs128_plain"] = {"not_run": True, "would_need_gb": need_gb,
+                                    "card_gb": total_gb}
+        log("remat", f"ukbb192 bf16 bs 128 remat off: not run, would need {need_gb:.1f} GB "
+                     f"(4 x the bs-32 peak) of {total_gb:.1f}")
+    # the ukbb192 flagship's own HVAE (z_max_res 96: no stochastic 192^2 block)
+    t["ukbb192_flagship_bs128_remat"] = remat_step_time(
+        remat_config("ukbb192", flagship=True), 5, SEED + 205)
+    t["ukbb192_flagship_bs128_plain"] = remat_step_time(
+        remat_config("ukbb192", remat=False, flagship=True), 5, SEED + 205)
+    t["mimic192_bs128_remat"] = remat_step_time(remat_config("mimic192"), 5, SEED + 204)
+    out["launches"] = {k: v["launches"] for k, v in t.items() if "launches" in v}
+    return out
+
+
+VIZ_CONFIGS = ("ukbb192", "morphomnist_cond_prior", "cmnist_dmol")
+# the float32 card-vs-CPU grids: at the viz batch where the CPU draws it in
+# seconds, at CHECK_BS on ukbb192 (80-row 192^2 passes on the CPU)
+VIZ_CHECK_BS = {"ukbb192": CHECK_BS, "morphomnist_cond_prior": BS, "cmnist_dmol": BS}
+
+
+def viz_config(name, dtype=None, bs=BS):
+    """The viz cells: ukbb192 (the registry's, bf16), morphomnist with
+    cond_prior (``variant_config``) and cmnist with the DMoL head."""
+    from causal_gen_tpu_torch.config import get_config
+
+    if name == "ukbb192":
+        return ukbb_config(dtype or "bfloat16", bs)
+    if name == "morphomnist_cond_prior":
+        return variant_config("cond_prior", bs)
+    return get_config("cmnist", bs=bs, x_like="diag_dmol")
+
+
+def viz_noise(cfg, bs, rng, n_latents_viz=0):
+    """The standard normals ``utils/viz.py::write_images`` takes, in its
+    order: the abduction's, per cut level the reconstruction's for the
+    blocks past the cut, ten samples', per cut level the tiled
+    reconstruction's and direct effect's, and under cond_prior the mixture
+    abduction's posterior and prior passes."""
+    import numpy as np
+
+    from causal_gen_tpu_torch.utils.viz import TEMPS
+
+    res = k1_res(cfg)
+    d = cfg.context_dim
+
+    def normals(n, rs):
+        return [rng.standard_normal((n, cfg.z_dim, r, r)).astype(np.float32) for r in rs]
+
+    cuts = np.floor(np.linspace(0, 1, n_latents_viz + 2) * len(res)).astype(int)[1:]
+    out = normals(bs, res)
+    for cut in cuts:
+        out += normals(bs, res[cut:])
+    for _ in TEMPS:
+        out += normals(bs, res)
+    for cut in cuts:
+        out += normals(bs * d, res[cut:]) + normals(bs * d, res[cut:])
+        if cfg.cond_prior:
+            out += normals(bs * d, res) + normals(bs * d, res)
+    return out
+
+
+def viz_rows_err(got, ref, cfg, bs, h, n_latents_viz=0):
+    """(largest error of an image row, of a difference row modulo 256)
+    between two grids."""
+    import numpy as np
+
+    from causal_gen_tpu_torch.utils.viz import TEMPS
+
+    n_cut, n_eff = n_latents_viz + 1, 2 if cfg.cond_prior else 0
+    first, per = 1 + n_cut + 1 + len(TEMPS) + 1, 2 * (1 + n_eff)
+    diff_rows = [first + c * (bs * per + 1) + i * per + 2 * e + 1
+                 for c in range(n_cut) for i in range(bs) for e in range(1 + n_eff)]
+    diff = np.abs(got.astype(np.int16) - ref.astype(np.int16)).reshape(-1, h, got.shape[1],
+                                                                      got.shape[2])
+    image_rows = np.setdiff1d(np.arange(diff.shape[0]), diff_rows)
+    wrapped = np.minimum(diff[diff_rows] % 256, 256 - diff[diff_rows] % 256)
+    return int(diff[image_rows].max()), int(wrapped.max())
+
+
+def viz_expected(cfg, vae):
+    """write_images' launches (n_latents_viz 0): K1 in the abduction (and
+    the mixture abduction's posterior pass), K2 on the covered blocks of
+    each encoder and decoder pass outside autograd; K4 none (the sample rows
+    decode the head's loc, as JAX's write_images asks)."""
+    from causal_gen_tpu_torch.utils.viz import TEMPS
+
+    enc, dec = k2_cover(vae)
+    cp = int(cfg.cond_prior)
+    k2 = enc * (1 + cp) + dec * (1 + 1 + len(TEMPS) + 2 + 4 * cp)
+    k2_dtype = "fused_light_block_tc" if cfg.dtype == "bfloat16" else "fused_light_block_simt"
+    want = dict(expected_counts(cfg, 0), fused_sample_kl=len(k1_res(cfg)) * (1 + cp),
+                fused_light_block=k2)
+    want[k2_dtype] = k2
+    return want
+
+
+def phase_viz():
+    """utils/viz.py::write_images on ukbb192 (bf16: K2 and K1), morphomnist
+    with cond_prior (the indirect and total rows) and cmnist with the DMoL
+    head: the card's float32 grid against the CPU plain path's on the same
+    weights, batch and draws (uint8 within 1; ukbb192 at bs CHECK_BS, the
+    others at their viz batch, BS), then each at the viz batch cli.main draws
+    (min(context_dim * 5, bs)) with its launches and time."""
+    import numpy as np
+    import torch
+
+    from causal_gen_tpu_torch.models.hvae import HVAE
+    from causal_gen_tpu_torch.utils.viz import write_images
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for name in VIZ_CONFIGS:
+        rng = np.random.default_rng(SEED + 210)
+        n = VIZ_CHECK_BS[name]
+        c = viz_config(name, "float32" if name == "ukbb192" else None, n)
+        cpu_m = HVAE(c, device="cpu", generator=torch.Generator().manual_seed(SEED))
+        if name == "morphomnist_cond_prior":  # the zero prior heads would hide the parents
+            fill_zero_leaves(cpu_m, torch.Generator().manual_seed(SEED + 120))
+        gpu_m = HVAE(c, device="cuda")
+        gpu_m.load_state_dict(cpu_m.state_dict())
+        batch = synth_batch(c, rng)
+        draws = viz_noise(c, n, rng)
+        grids = {}
+        for d, m in (("cpu", cpu_m), ("cuda", gpu_m)):
+            taken = iter([torch.from_numpy(e).to(torch.device(d)) for e in draws])
+            grids[d] = write_images(c, m.eval(), batch, None, noise=taken)
+            if next(taken, None) is not None:
+                raise AssertionError(f"viz {name}: write_images left draws unused")
+        img_err, diff_err = viz_rows_err(grids["cuda"], grids["cpu"], c, n, c.input_res)
+        if grids["cuda"].shape != grids["cpu"].shape or img_err > 1 or diff_err > 1:
+            raise AssertionError(f"viz {name}: card grid vs CPU: {img_err}, {diff_err}")
+        del cpu_m, gpu_m
+
+        cfg = viz_config(name)
+        vb = synth_batch(cfg.replace(bs=min(cfg.context_dim * 5, cfg.bs)), rng)
+        vae = HVAE(cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
+        reset_counts()
+        grid = write_images(cfg, vae.eval(), vb, None)
+        torch.cuda.synchronize()
+        counts, want = read_counts(), viz_expected(cfg, vae)
+        if counts != want or grid.dtype != np.uint8:
+            raise AssertionError(f"viz {name}: launches {counts}, expected {want}")
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            write_images(cfg, vae, vb, None)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        del vae
+        out[name] = {"check_bs": n, "max_err_image_rows": img_err, "max_err_diff_rows": diff_err,
+                     "viz_bs": vb["x"].shape[0], "grid_shape": list(grid.shape),
+                     "launches": counts, "ms": statistics.median(times), "ms_all": times}
+        log("viz", f"{name} ({cfg.dtype}): float32 grid bs {n} card vs CPU within {img_err} "
+                   f"(image rows) / {diff_err} (difference rows); viz batch {vb['x'].shape[0]}:"
+                   f" grid {grid.shape}, median {out[name]['ms']:.1f} ms over 3, launches "
+                   f"{counts}")
+    return out
+
+
+# the data reach the CLIs in memory (--in_memory), the path taken where PIL
+# is missing; the tree's PNG round trip is held on the CPU
+E2E_ARGS = ["--dataset", "ukbb", "--flagship", "--n", "16", "--bs", "8", "--epochs", "1",
+            "--cf_max_batches", "2", "--eval_seeds", "0", "--device", "cuda", "--in_memory"]
+
+
+def phase_e2e():
+    """tools/e2e_synth_torch.py on the card at the ukbb192 flagship config
+    (192^2, bf16, stage_scan and remat from 48^2) with reduced data: 16 per
+    split, bs 8, 1 epoch, 2 CF updates, one eval seed; each stage run on its
+    own, reading the last one's checkpoint, with its seconds and launches."""
+    import importlib.util
+    import tempfile
+
+    import torch
+
+    spec = importlib.util.spec_from_file_location(
+        "e2e_synth_torch", os.path.join(ROOT, "tools", "e2e_synth_torch.py"))
+    twin = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twin)
+    out = {"stages": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_e2e_") as tmp:
+        dirs = ["--root", os.path.join(tmp, "tree"), "--out", os.path.join(tmp, "out")]
+        for stage in "1234":
+            reset_counts()
+            r = twin.main(E2E_ARGS + dirs + ["--stages", stage])
+            torch.cuda.synchronize()
+            out["stages"][stage] = {"seconds": r["seconds"][stage], "launches": read_counts(),
+                                    "updates_made_skipped": r["updates"].get(stage)}
+            log("e2e", f"stage {stage}: {r['seconds'][stage]:.1f} s, launches "
+                       f"{out['stages'][stage]['launches']}"
+                       + (f", updates made / skipped {r['updates'][stage]}"
+                          if stage in r["updates"] else ""))
+        for role in ("vae", "pgm", "aux", "cf"):
+            if not os.path.exists(os.path.join(tmp, "out", role, "checkpoint")):
+                raise AssertionError(f"e2e: no {role} checkpoint")
+        metrics = r["eval"]["metrics"]
+        if not metrics or not all(math.isfinite(m["mean"]) for m in metrics.values()):
+            raise AssertionError(f"e2e: stage 4 metrics {metrics}")
+    out["eval_metrics"] = metrics
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3946,6 +4393,9 @@ def main() -> int:
     ap.add_argument("--tune-k2", action="store_true",
                     help="only time the float32 K2 candidates at every ukbb shape and print the "
                          "fastest as ops/fused_block.py's F32_TUNED")
+    ap.add_argument("--phases", help="run only these phases (comma-separated names, e.g. "
+                                     "remat,viz,e2e; device and build always run) and print no "
+                                     "result line")
     args = ap.parse_args()
     if args.tune_k2:
         phase_device()
@@ -3974,29 +4424,41 @@ def main() -> int:
         log("time", f"phase {name}: {seconds[name]:.1f} s (run at {time.perf_counter() - t_start:.1f} s)")
         return r
 
+    phases = [
+        ("K1", lambda: phase_k1(cfg)), ("K1-bwd", lambda: phase_k1_bwd(cfg)),
+        ("K3", phase_k3), ("K4", phase_k4), ("K2", phase_k2),
+        ("slice", lambda: phase_slice(cfg)), ("sample", lambda: phase_sample(cfg)),
+        ("train", lambda: {n: phase_train(n) for n in TRAIN_CONFIGS}),
+        ("entry", lambda: {n: phase_entry(n) for n in TRAIN_CONFIGS}),
+        ("ukbb", phase_ukbb_slice), ("ukbb-sample", phase_ukbb_sample),
+        ("ukbb-train", phase_ukbb_train), ("ukbb64", phase_ukbb64), ("mimic", phase_mimic),
+        ("cond_prior", phase_cond_prior), ("vol3d", phase_vol3d),
+        ("pgm_train", lambda: {**phase_pgm_train(), **phase_pgm_train(("semi_sup_mimic",))}),
+        ("dense_cf", lambda: phase_dense_cf(cfg)), ("cmnist_cf", phase_cmnist_cf),
+        ("simple_vae", phase_simple_vae), ("cf_train", phase_cf_train),
+        ("remat", phase_remat), ("viz", phase_viz), ("e2e", phase_e2e)]
+    chosen = None if args.phases is None else set(args.phases.split(","))
+    if chosen is not None and not chosen <= {n for n, _ in phases}:
+        raise SystemExit(f"--phases: unknown {sorted(chosen - {n for n, _ in phases})}")
     build_s = timed("build", phase_build)
-    k1 = timed("K1", phase_k1, cfg)
-    k1b = timed("K1-bwd", phase_k1_bwd, cfg)
-    k3 = timed("K3", phase_k3)
-    k4 = timed("K4", phase_k4)
-    k2 = timed("K2", phase_k2)
-    sl = timed("slice", phase_slice, cfg)
-    samp = timed("sample", phase_sample, cfg)
-    train = timed("train", lambda: {n: phase_train(n) for n in TRAIN_CONFIGS})
-    entry = timed("entry", lambda: {n: phase_entry(n) for n in TRAIN_CONFIGS})
-    uk = timed("ukbb", phase_ukbb_slice)
-    uk_samp = timed("ukbb-sample", phase_ukbb_sample)
-    uk_train = timed("ukbb-train", phase_ukbb_train)
-    uk64 = timed("ukbb64", phase_ukbb64)
-    mim = timed("mimic", phase_mimic)
-    cp = timed("cond_prior", phase_cond_prior)
-    vol = timed("vol3d", phase_vol3d)
-    pgm = timed("pgm_train", phase_pgm_train)
-    pgm.update(timed("pgm_train mimic", phase_pgm_train, ("semi_sup_mimic",)))
-    dcf = timed("dense_cf", phase_dense_cf, cfg)
-    ccf = timed("cmnist_cf", phase_cmnist_cf)
-    svae = timed("simple_vae", phase_simple_vae)
-    cft = timed("cf_train", phase_cf_train)
+    res = {n: timed(n, fn) for n, fn in phases if chosen is None or n in chosen}
+    if chosen is not None:
+        if args.json:
+            os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
+            with open(args.json, "w") as f:
+                json.dump({"device": name, "nvidia_smi": smi, "build_s": build_s, **res,
+                           "phase_seconds": seconds,
+                           "total_s": time.perf_counter() - t_start}, f, indent=1, default=str)
+        log("done", f"phases {sorted(chosen)} passed in {time.perf_counter() - t_start:.1f} s "
+                    f"on {smi}")
+        timer.cancel()
+        return 0
+    k1, k1b, k3, k4, k2 = res["K1"], res["K1-bwd"], res["K3"], res["K4"], res["K2"]
+    sl, samp, train, entry = res["slice"], res["sample"], res["train"], res["entry"]
+    uk, uk_samp, uk_train, uk64 = res["ukbb"], res["ukbb-sample"], res["ukbb-train"], res["ukbb64"]
+    mim, cp, vol, pgm = res["mimic"], res["cond_prior"], res["vol3d"], res["pgm_train"]
+    dcf, ccf, svae, cft = res["dense_cf"], res["cmnist_cf"], res["simple_vae"], res["cf_train"]
+    rem, vz, e2e = res["remat"], res["viz"], res["e2e"]
     turns = phase_turns(os.path.abspath(args.parent)) if args.parent else None
     # launches on the main paths, each counted from 0: DSCM.forward (the
     # Morpho-MNIST, ukbb192, ukbb64 and mimic192 serving slices),
@@ -4027,6 +4489,13 @@ def main() -> int:
                     "cf_train_step morphomnist (final_cf_morph_tw25)":
                         cft["morphomnist"]["launches"],
                     "cli.train_cf morphomnist": cft["cli"]["launches"]})
+    # slice 10: the flagships' train steps with block remat (and without, at
+    # bs 32), write_images on each viz cell, each stage of the e2e run
+    by_path.update({f"train_step {k.replace('_', ' ')}": c
+                    for k, c in rem["launches"].items()})
+    by_path.update({f"write_images {n}": v["launches"] for n, v in vz.items()})
+    by_path.update({f"e2e_synth_torch ukbb192 flagship stage {k}": v["launches"]
+                    for k, v in e2e["stages"].items()})
 
     # K2's float32 kernel also runs in the float32 card-vs-CPU checks, each
     # counted from 0; those launches are listed apart
@@ -4107,7 +4576,7 @@ def main() -> int:
               "entry": entry, "ukbb": uk, "ukbb_sample": uk_samp, "ukbb_train": uk_train,
               "ukbb64": uk64, "mimic": mim, "cond_prior": cp, "vol3d": vol, "pgm_train": pgm,
               "dense_cf": dcf, "cmnist_cf": ccf, "simple_vae": svae, "cf_train": cft,
-              "turns": turns,
+              "remat": rem, "viz": vz, "e2e": e2e, "turns": turns,
               "kernels": kernels, "phase_seconds": seconds,
               "total_s": time.perf_counter() - t_start}
     if args.json:

@@ -15,9 +15,16 @@ PKG = ROOT / "causal_gen_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "optax", "causal_gen_tpu")
 
 
+def _twins():
+    """The port's twins of the JAX package's tools and examples."""
+    return sorted((ROOT / "tools").glob("*_torch.py")) + sorted(
+        (ROOT / "examples").glob("*_torch.py"))
+
+
 def _port_sources():
     files = sorted(p for p in PKG.rglob("*.py") if "_build" not in p.parts)
-    return files + [ROOT / "chip_smoke.py"] + sorted((ROOT / "tests").glob("test_torch_*_gpu.py"))
+    return (files + [ROOT / "chip_smoke.py"] + _twins()
+            + sorted((ROOT / "tests").glob("test_torch_*_gpu.py")))
 
 
 def _imported_modules(tree):
@@ -93,6 +100,29 @@ def test_the_cf_training_slice_modules_are_checked(rel):
     assert "tests/test_torch_cf_gpu.py" in checked
 
 
+@pytest.mark.parametrize("rel", ["causal_gen_tpu_torch/models/remat.py",
+                                 "causal_gen_tpu_torch/models/blocks.py",
+                                 "causal_gen_tpu_torch/models/hvae.py",
+                                 "causal_gen_tpu_torch/utils/viz.py",
+                                 "causal_gen_tpu_torch/utils/plots.py",
+                                 "causal_gen_tpu_torch/cli/main.py",
+                                 "causal_gen_tpu_torch/cli/train_pgm.py",
+                                 "causal_gen_tpu_torch/cli/train_cf.py",
+                                 "causal_gen_tpu_torch/cli/evaluate.py",
+                                 "causal_gen_tpu_torch/data/datasets.py",
+                                 "causal_gen_tpu_torch/pgm/dscm.py",
+                                 "tools/e2e_synth_torch.py",
+                                 "examples/counterfactual_demo_torch.py",
+                                 "examples/vol3d_demo_torch.py",
+                                 "tests/test_torch_remat_gpu.py"])
+def test_the_flagship_training_slice_modules_are_checked(rel):
+    """Each module the remat, viz, end-to-end and demo slice adds or changes,
+    its twins of the JAX tools and examples and its card test are among
+    those held to the rules above; the twins import in the JAX-free
+    interpreter below."""
+    assert rel in {str(p.relative_to(ROOT)) for p in _port_sources()}
+
+
 def test_every_module_imports_without_jax():
     """Import every module of the package in a fresh interpreter that refuses
     JAX and the JAX package."""
@@ -100,7 +130,7 @@ def test_every_module_imports_without_jax():
                      for p in PKG.rglob("*.py") if "_build" not in p.parts)
     modules = [m[: -len(".__init__")] if m.endswith(".__init__") else m for m in modules]
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
         "class Refuse:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
         f"        if name.split('.')[0] in {FORBIDDEN!r}:\n"
@@ -108,6 +138,9 @@ def test_every_module_imports_without_jax():
         "sys.meta_path.insert(0, Refuse())\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
+        f"for p in {[str(p) for p in _twins()]!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('twin', p)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "print(len(sys.modules))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

@@ -315,6 +315,8 @@ def test_cli_train_pgm_runs_every_setup(tmp_path, setup):
     assert all(np.isfinite(v) for v in history.values())
     if setup != "sup_pgm":
         assert "eval/digit_acc" in history and "eval/thickness_mae" in history
+    else:  # the joint plots (matplotlib, seaborn and pandas are installed here)
+        assert (tmp_path / "joint_samples.png").exists() and (tmp_path / "joint_data.png").exists()
     cfg, loaded, extra = ttp.load_pgm_checkpoint(str(tmp_path / "checkpoint"), "cpu")
     assert cfg.setup == setup and loaded.step == state.step
     for a, b in zip(loaded.ema.state_dict().values(), state.ema.state_dict().values()):
