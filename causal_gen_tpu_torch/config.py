@@ -161,7 +161,9 @@ class Config:
     # 128-wide; narrow channel dims underfill the MXU. Changes model capacity,
     # so it is OFF for parity configs and opt-in for perf variants.
     width_multiple: int = 0
-    # parallelism (no reference counterpart; see SURVEY.md parallelism table)
+    # parallelism (no reference counterpart; see SURVEY.md parallelism table),
+    # carried as the JAX package carries them and read by nothing there or
+    # here: a run builds its mesh with parallel/mesh.py::make_mesh(shape, axes)
     mesh_shape: Tuple[int, ...] = (1,)
     mesh_axes: Tuple[str, ...] = ("data",)
 

@@ -16,6 +16,13 @@ Compute dtype: with ``dtype=torch.bfloat16`` the parameters stay float32 and
 each conv casts its input, weight and bias to bf16 and returns bf16, as
 flax's ``nn.Conv(dtype=...)`` does (``conv_in``).
 
+Parallelism (``parallel/``): a conv that ``shard_params_tp`` made
+column-parallel computes its shard of the out channels and gathers them;
+K2 takes its gathered weights. ``sp``, a ``parallel/spatial.py::
+SpatialShard``, is given to ``conv_in``, ``Block`` and ``Encoder`` when the
+input is spatially sharded: each kxk conv takes its halo, K2 a two-row
+halo, and a pool whose output resolution is whole gathers first.
+
 Remat: a ``Block`` with ``remat`` set runs under the non-reentrant
 ``torch.utils.checkpoint`` where autograd records, as flax's ``nn.remat(Block)``
 (``models/remat.py``). The ``Encoder`` sets it on each block whose input
@@ -34,6 +41,7 @@ from torch import Tensor, nn
 
 from causal_gen_tpu_torch.models.remat import checkpointed
 from causal_gen_tpu_torch.ops.fused_block import fused_light_block
+from causal_gen_tpu_torch.parallel.tensor import full_weight
 
 # flax's lecun_normal draws a normal truncated at +-2 std, rescaled by this
 # constant so that the truncated draw keeps unit variance
@@ -81,9 +89,13 @@ def _cast(t: Optional[Tensor], dtype: Optional[torch.dtype]) -> Optional[Tensor]
     return t if t is None or dtype is None else t.to(dtype)
 
 
-def conv_in(conv: nn.Module, x: Tensor, dtype: Optional[torch.dtype]) -> Tensor:
+def conv_in(conv: nn.Module, x: Tensor, dtype: Optional[torch.dtype], sp=None) -> Tensor:
     """``conv(x)`` in the compute ``dtype`` (None: as the tensors come): input,
-    weight and bias cast, output in ``dtype``."""
+    weight and bias cast, output in ``dtype``. With ``sp`` (x a spatial
+    slab) a kxk conv takes its halo (``SpatialShard.conv``)."""
+    if sp is not None and conv.padding[0] > 0:
+        return sp.conv(conv, x if dtype is None else x.to(dtype), _cast(conv.weight, dtype),
+                       _cast(conv.bias, dtype))
     if dtype is None:
         return conv(x)
     return conv._conv_forward(x.to(dtype), conv.weight.to(dtype), _cast(conv.bias, dtype))
@@ -155,29 +167,35 @@ class Block(nn.Module):
         return (self.k2_covered and not torch.is_grad_enabled()
                 and x.dtype == (self.dtype or torch.float32))
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, sp=None) -> Tensor:
+        """The block on ``x``; with ``sp``, x is this rank's spatial slab."""
         if self.remat:
-            return checkpointed(self._body, x)
-        return self._body(x)
+            return checkpointed(self._body, x, sp)
+        return self._body(x, sp)
 
-    def _body(self, x: Tensor) -> Tensor:
+    def _body(self, x: Tensor, sp=None) -> Tensor:
         dt = self.dtype
         if self.takes_k2(x):
             c1, c2 = self._convs
-            out = fused_light_block(x.contiguous(), c1.weight.to(x.dtype), c2.weight.to(x.dtype),
+            xin = x.contiguous() if sp is None else sp.widen(x, 2)
+            out = fused_light_block(xin, full_weight(c1).to(x.dtype), full_weight(c2).to(x.dtype),
                                     _cast(c1.bias, x.dtype), _cast(c2.bias, x.dtype))
+            if sp is not None:
+                out = sp.crop(out, 2, x.shape[2])
         else:
             act = F.relu if self.version == "light" else (
                 lambda v: F.gelu(v, approximate="none"))
             out = x
             for c in self._convs:
-                out = conv_in(c, act(out), dt)
+                out = conv_in(c, act(out), dt, sp)
             if self.residual:
                 if self.width_proj is not None:
                     x = conv_in(self.width_proj, x, dt)
                 out = x + out
         if self.down_rate:
             d = self.down_rate
+            if sp is not None and not sp.sharded(out.shape[2] * sp.n // d):
+                out = sp.gather(out)
             if self.spatial_dims == 2:
                 out = F.avg_pool2d(out, d, d)
             else:  # PyTorch's CPU avg_pool3d has no bf16: pool in float32, round once
@@ -207,6 +225,8 @@ class Encoder(nn.Module):
             if stage.down_rate is not None:
                 flat += [(widths[i + 1], stage.down_rate, stage.res)]
         self.stem = make_conv(input_channels, stem_width, 7, spatial_dims, stride=stem_stride)
+        self._in_res = stages[0].res
+        self._down_rates = [d for _, d, _ in flat]
         n = len(flat)
         blocks = []
         for i, (width, d, res) in enumerate(flat):
@@ -218,15 +238,31 @@ class Encoder(nn.Module):
             self.add_module(f"blocks_{i}", blocks[-1])
         self._blocks = blocks
 
-    def forward(self, x: Tensor) -> Dict[int, Tensor]:
-        x = conv_in(self.stem, x, self.dtype)
+    def forward(self, x: Tensor, sp=None) -> Dict[int, Tensor]:
+        """Activations by resolution. With ``sp`` (a ``SpatialShard``), x and
+        each activation are this rank's slab where the plan shards their
+        resolution, else whole."""
+        stride = self.stem.stride[0]
+        stem_sp = sp and sp.at(self._in_res)
+        if stem_sp is not None and (stride > 1 or x.shape[2] < self.stem.padding[0]):
+            # no halo conv on a strided or short slab: the stem on the whole image
+            x = conv_in(self.stem, sp.gather(x), self.dtype)
+            x = sp.slab(x) if sp.sharded(x.shape[2]) else x
+        else:
+            x = conv_in(self.stem, x, self.dtype, stem_sp)
         acts: Dict[int, Tensor] = {}
-        for block in self._blocks:
-            x = block(x)
-            res = x.shape[2]
+        # whole tensors show their resolution (an input may differ from the
+        # stages'); a slab does not, so under sp the stages give it
+        res = x.shape[2] if sp is None else (self._in_res - 1) // stride + 1
+        for block, d in zip(self._blocks, self._down_rates):
+            x = block(x, sp and sp.at(res))
+            res = res // d if d else res
             if res % 2 and res > 1:  # pad odd resolutions (reference vae.py:131-132)
                 x = F.pad(x, (0, 1) * self.spatial_dims)
-            acts[x.shape[2]] = x
+                res += 1
+                if sp is not None and sp.sharded(res):
+                    x = sp.slab(x)
+            acts[res] = x
         return acts
 
 

@@ -60,6 +60,16 @@ flag only picks the remat unit, as in JAX. With ``cfg.remat``:
   blocks outside a run are not rematerialised.
 
 ``cond_prior``'s dropout option is drawn once a pass, outside every unit.
+
+``forward`` and ``abduct`` take a ``mesh`` (``parallel/mesh.py``): x and the
+parents are then this rank's rows (and with a ``space`` axis, x its slab
+where the plan shards the input resolution, ``parallel/spatial.py``). The
+free-bits clamp takes the batch-mean KL over the whole batch (a
+differentiable mean over ``data``); under spatial sharding each sharded
+block computes its slab, its spatial KL sum and the per-image NLL are summed
+over ``space``, the injected draws of a sharded block come whole and each
+rank takes its slab, and ``abduct`` returns each latent as the rank's slab
+where its resolution is sharded.
 """
 
 from __future__ import annotations
@@ -86,6 +96,7 @@ from causal_gen_tpu_torch.models.likelihoods import make_likelihood
 from causal_gen_tpu_torch.models.remat import rematerialised
 from causal_gen_tpu_torch.ops.distributions import sample_gaussian
 from causal_gen_tpu_torch.ops.sample_kl import fused_sample_kl
+from causal_gen_tpu_torch.parallel.mesh import spatial_sharding
 
 Noise = Optional[Iterator[Tensor]]
 
@@ -153,11 +164,11 @@ class DecoderBlock(nn.Module):
     def init_extra_(self, generator: Optional[torch.Generator]) -> None:
         lecun_normal_(self.z_proj.weight, generator, self.z_proj_scale)
 
-    def forward_prior(self, z: Tensor, pa: Optional[Tensor] = None, t: Optional[float] = None
-                      ) -> Tuple[Tensor, Tensor, Tensor]:
+    def forward_prior(self, z: Tensor, pa: Optional[Tensor] = None, t: Optional[float] = None,
+                      sp=None) -> Tuple[Tensor, Tensor, Tensor]:
         if self.cond_prior:
             z = _cat([z, _bcast_pa(pa, z)], self.dtype)
-        z = self.prior(z)
+        z = self.prior(z, sp)
         zd = self.z_dim
         stats = z[:, : 2 * zd].float()
         p_logscale = stats[:, zd:]
@@ -165,9 +176,9 @@ class DecoderBlock(nn.Module):
             p_logscale = p_logscale + math.log(t)
         return stats[:, :zd], p_logscale, z[:, 2 * zd:]
 
-    def forward_posterior(self, z: Tensor, x: Tensor, pa: Tensor, t: Optional[float] = None
-                          ) -> Tuple[Tensor, Tensor]:
-        out = self.posterior(_cat([z, _bcast_pa(pa, z), x], self.dtype)).float()
+    def forward_posterior(self, z: Tensor, x: Tensor, pa: Tensor, t: Optional[float] = None,
+                          sp=None) -> Tuple[Tensor, Tensor]:
+        out = self.posterior(_cat([z, _bcast_pa(pa, z), x], self.dtype), sp).float()
         q_logscale = out[:, self.z_dim:]
         if t is not None:
             q_logscale = q_logscale + math.log(t)
@@ -258,9 +269,18 @@ class Decoder(nn.Module):
         b = getattr(self, f"bias_{res}", None)
         return b if b is None or self.dtype is None else b.to(self.dtype)
 
-    def _up(self, h: Tensor, res: int) -> Tensor:
+    def _up(self, h: Tensor, res: int, prev: int, sp=None) -> Tensor:
+        """``h`` at resolution ``prev`` upsampled to ``res`` plus the bias at
+        ``res``; with ``sp``, in the plan's layouts at both."""
         b = self._bias_at(res)
-        up = upsample_nearest(h, res)
+        if sp is None or not sp.sharded(res):
+            up = upsample_nearest(h, res)
+        elif sp.sharded(prev):
+            up = upsample_nearest(h, res // sp.n)
+        else:
+            up = sp.slab(upsample_nearest(h, res))
+        if b is not None and sp is not None and sp.sharded(res):
+            b = sp.slab(b)
         return up if b is None else b + up
 
     def _prior_parents(self, pa: Tensor, train: bool, noise: Noise,
@@ -282,7 +302,7 @@ class Decoder(nn.Module):
     def forward(self, parents: Tensor, acts: Optional[Dict[int, Tensor]] = None,
                 abduct: bool = False, latents: Optional[Sequence[Optional[Tensor]]] = None,
                 noise: Noise = None, generator: Optional[torch.Generator] = None,
-                t: Optional[float] = None, train: bool = False
+                t: Optional[float] = None, train: bool = False, sp=None
                 ) -> Tuple[Tensor, List[Dict[str, Any]]]:
         """Runs every block (reference vae.py:241-300). With ``acts`` each
         stochastic block draws z ~ q(z | z_<i, x, pa) and reports its KL
@@ -291,7 +311,9 @@ class Decoder(nn.Module):
         a block takes its entry of ``latents`` or draws from the prior (and
         with ``abduct`` under ``cond_prior`` reports ``{p_loc, p_logscale}``).
         ``t`` adds log t to every prior and posterior log-scale; ``train``
-        turns conditioning dropout on (``_prior_parents``).
+        turns conditioning dropout on (``_prior_parents``); ``sp`` (a
+        ``SpatialShard``) shards the blocks at the resolutions its plan
+        splits.
         """
         bs = parents.shape[0]
         n = len(self._blocks)
@@ -302,7 +324,7 @@ class Decoder(nn.Module):
         stats: List[Dict[str, Any]] = []
         for i, block in enumerate(self._blocks):
             act = None if acts is None else acts[block.resolution]
-            step = functools.partial(self._block_step, i, t=t, abduct=abduct)
+            step = functools.partial(self._block_step, i, t=t, abduct=abduct, sp=sp)
             if i in self._cells:
                 h, z, stat = rematerialised(step, noise, generator, h, z, pa, pa_sto, act,
                                             latents[i])
@@ -315,41 +337,51 @@ class Decoder(nn.Module):
 
     def _block_step(self, i: int, h: Tensor, z: Tensor, pa: Tensor, pa_sto: Tensor,
                     act: Optional[Tensor], latent: Optional[Tensor], t: Optional[float],
-                    abduct: bool, noise: Noise, generator: Optional[torch.Generator]
-                    ) -> Tuple[Tensor, Tensor, Optional[Dict[str, Any]]]:
+                    abduct: bool, noise: Noise, generator: Optional[torch.Generator],
+                    sp=None) -> Tuple[Tensor, Tensor, Optional[Dict[str, Any]]]:
         """Block ``i`` on the residual stream ``h`` and the prior's input
-        ``z``: (h, z, its stats or None). A ``stage_scan`` remat unit."""
+        ``z``, both at the previous block's resolution: (h, z, its stats or
+        None). A ``stage_scan`` remat unit."""
         block = self._blocks[i]
         res = block.resolution
-        if h.shape[2] < res:
-            h = self._up(h, res)
+        prev = self._blocks[i - 1].resolution if i else 1
+        sp_res = None if sp is None else sp.at(res)
+        if prev < res:
+            h = self._up(h, res, prev, sp)
         if block.q_correction:
             p_input = h
         else:  # the prior depends on the previous prior latent only
-            p_input = self._up(z, res) if z.shape[2] < res else z
-        p_loc, p_logscale, p_feat = block.forward_prior(p_input, pa_sto, t)
+            p_input = self._up(z, res, prev, sp) if prev < res else z
+        p_loc, p_logscale, p_feat = block.forward_prior(p_input, pa_sto, t, sp_res)
         stat: Optional[Dict[str, Any]] = None
         if block.stochastic:
             if act is not None:
-                q_loc, q_logscale = block.forward_posterior(h, act, pa, t)
+                q_loc, q_logscale = block.forward_posterior(h, act, pa, t, sp_res)
+                eps = _next(noise)
+                if sp_res is not None:
+                    eps = sp_res.noise(eps, q_loc, generator)
                 z, kl = fused_sample_kl(
                     q_loc.contiguous(), q_logscale.contiguous(), p_loc.contiguous(),
-                    p_logscale.contiguous(), eps=_next(noise), generator=generator)
-                stat = dict(kl=kl.sum(dim=tuple(range(2, kl.dim()))))
+                    p_logscale.contiguous(), eps=eps, generator=generator)
+                kl = kl.sum(dim=tuple(range(2, kl.dim())))
+                stat = dict(kl=kl if sp_res is None else sp_res.sum(kl))
                 if abduct:  # z* needs the q stats under cond_prior (vae.py:271-276)
                     stat["z"] = (dict(z=z, q_loc=q_loc, q_logscale=q_logscale)
                                  if block.cond_prior else z)
             elif latent is not None:
                 z = latent
             else:
-                z = sample_gaussian(p_loc, p_logscale, _next(noise), generator)
+                eps = _next(noise)
+                if sp_res is not None:
+                    eps = sp_res.noise(eps, p_loc, generator)
+                z = sample_gaussian(p_loc, p_logscale, eps, generator)
                 if abduct and block.cond_prior:  # p for the mixture abduction
                     stat = dict(z=dict(p_loc=p_loc, p_logscale=p_logscale))
         else:
             z = p_loc
         h = h + p_feat
         h = h + conv_in(block.z_proj, _cat([z, _bcast_pa(pa, z)], self.dtype), self.dtype)
-        h = block.conv(h)
+        h = block.conv(h, sp_res)
         if block.z_feat_proj is not None:
             # z independent of pa for the next prior (vae.py:297-300)
             z = conv_in(block.z_feat_proj, _cat([z, p_feat], self.dtype), self.dtype)
@@ -388,25 +420,34 @@ class HVAE(nn.Module):
         self.to(resolve_device(device))
 
     def forward(self, x: Tensor, parents: Tensor, beta: float = 1.0, noise: Noise = None,
-                generator: Optional[torch.Generator] = None, train: bool = True
-                ) -> Dict[str, Tensor]:
+                generator: Optional[torch.Generator] = None, train: bool = True,
+                mesh=None) -> Dict[str, Tensor]:
         """Negative ELBO per pixel, with its NLL and KL terms. ``train``
         (default True, as in JAX) turns conditioning dropout on; evaluation
-        and ``DSCM.forward`` pass False."""
-        acts = self.encoder(x)
+        and ``DSCM.forward`` pass False. With ``mesh`` the terms are this
+        rank's rows' (module docstring)."""
+        sp = None if mesh is None else spatial_sharding(mesh)
+        sp_x = None if sp is None else sp.at(self.cfg.input_res)
+        acts = self.encoder(x, sp)
         h, stats = self.decoder(parents, acts=acts, noise=noise, generator=generator,
-                                train=train)
+                                train=train, sp=sp)
         nll_pp = self.likelihood.nll(h.float(), x)
+        npix = math.prod(x.shape[1:])
+        if sp_x is not None:  # the slabs' means -> the image's
+            nll_pp = sp_x.sum(nll_pp) / sp_x.n
+            npix *= sp_x.n
         if self.free_bits > 0:
             kl_pp = 0.0
             for stat in stats:
-                kl_pp = kl_pp + torch.sum(
-                    torch.clamp(torch.mean(stat["kl"], dim=0), min=self.free_bits))
+                mean_kl = torch.mean(stat["kl"], dim=0)
+                if mesh is not None:
+                    mean_kl = mesh.mean(mean_kl, "data")
+                kl_pp = kl_pp + torch.sum(torch.clamp(mean_kl, min=self.free_bits))
         else:
             kl_pp = torch.zeros_like(nll_pp)
             for stat in stats:
                 kl_pp = kl_pp + torch.sum(stat["kl"], dim=1)
-        kl_pp = torch.mean(kl_pp / math.prod(x.shape[1:]))  # per pixel
+        kl_pp = torch.mean(kl_pp / npix)  # per pixel
         nll_pp = torch.mean(nll_pp)
         return dict(elbo=nll_pp + beta * kl_pp, nll=nll_pp, kl=kl_pp)
 
@@ -423,7 +464,7 @@ class HVAE(nn.Module):
     def abduct(self, x: Tensor, parents: Tensor, cf_parents: Optional[Tensor] = None,
                alpha: float = 0.5, noise: Noise = None,
                generator: Optional[torch.Generator] = None, t: Optional[float] = None,
-               ) -> List[Any]:
+               mesh=None) -> List[Any]:
         """Latents z ~ q(z | x, pa), one per stochastic block, at temperature
         ``t`` (reference vae.py:466-516): tensors, or under ``cond_prior`` the
         dicts ``{z, q_loc, q_logscale}``. Under ``cond_prior`` with
@@ -432,15 +473,16 @@ class HVAE(nn.Module):
         posterior's) gives p, and each block's z* = r_loc + r_scale u with
         u = (z - q_loc) / q_scale, r_loc = alpha q_loc + (1 - alpha) p_loc,
         r_scale = sqrt(alpha^2 q_scale^2 + (1 - alpha)^2 p_scale^2), times
-        ``t`` when given."""
-        acts = self.encoder(x)
+        ``t`` when given. With ``mesh``, this rank's rows (and slabs)."""
+        sp = None if mesh is None else spatial_sharding(mesh)
+        acts = self.encoder(x, sp)
         _, q_stats = self.decoder(parents, acts=acts, abduct=True, noise=noise,
-                                  generator=generator, t=t)
+                                  generator=generator, t=t, sp=sp)
         qs = [s["z"] for s in q_stats]
         if not (self.cond_prior and cf_parents is not None):
             return qs
         _, p_stats = self.decoder(cf_parents, abduct=True, noise=noise, generator=generator,
-                                  t=t)
+                                  t=t, sp=sp)
         cf_zs = []
         for q, p in zip(qs, (s["z"] for s in p_stats)):
             q_loc, q_scale = q["q_loc"], torch.exp(q["q_logscale"])

@@ -197,10 +197,12 @@ class SimpleVAE(nn.Module):
         return self.likelihood.nll(h, x)
 
     def forward(self, x: Tensor, parents: Tensor, beta: float = 1.0, noise: Noise = None,
-                generator: Optional[torch.Generator] = None, train: bool = True
-                ) -> Dict[str, Tensor]:
+                generator: Optional[torch.Generator] = None, train: bool = True,
+                mesh=None) -> Dict[str, Tensor]:
         """Negative ELBO per pixel with its NLL and KL terms; ``train``
-        (default True, as in JAX) turns conditioning dropout on."""
+        (default True, as in JAX) turns conditioning dropout on. ``mesh``
+        (x this rank's rows) changes nothing: the terms are batch means of
+        per-image terms, so the step's reduction makes the global ones."""
         q_loc, q_logscale = self.encoder(x, parents)
         option = self.decoder.drop_option(train, noise, generator)
         z = sample_gaussian(q_loc, q_logscale, _next(noise), generator)

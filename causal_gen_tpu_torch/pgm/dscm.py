@@ -30,6 +30,13 @@ module does. Semantics kept from the JAX package:
   with (``models/remat.py::rematerialised``), since checkpoint restores only PyTorch's
   default generators and K1 takes its Philox seed from ``generator``.
 
+- ``mesh`` (``parallel/mesh.py``; data parallelism): ``obs`` and ``do`` are
+  this rank's rows and the Lagrangian takes the global batch-mean ELBO, a
+  differentiable mean over ``data``: its coefficient λ - damping sg(ε -
+  elbo) is not linear in the ELBO, so a rank's own ELBO would give another
+  gradient. The HVAE takes the mesh's ``data`` axis too (its free-bits
+  clamp); along ``model`` and ``space`` the ranks compute alike.
+
 ``lmbda``, the Lagrange multiplier, is a parameter that takes a gradient:
 CF training ascends on it (pgm/train_cf.py). The image mechanism is an
 ``HVAE`` or a ``SimpleVAE``: both have the mechanism API (forward, abduct,
@@ -115,6 +122,7 @@ class DSCM:
         noise: Optional[Iterable[Tensor]] = None,
         t_abduct: Optional[float] = None,
         do_mask: Optional[Dict[str, Tensor]] = None,
+        mesh=None,
     ) -> Dict[str, Any]:
         """Counterfactuals of ``obs`` (``x`` NC(D)HW in [-1, 1] plus the parents)
         under intervention ``do``, with the factual ELBO and the losses.
@@ -139,7 +147,8 @@ class DSCM:
         _pa = vae_preprocess(cfg, pa)
 
         def fact_fn(x_, pa_, noise, generator):
-            return vae(x_, pa_, beta=beta, noise=noise, generator=generator, train=False)
+            return vae(x_, pa_, beta=beta, noise=noise, generator=generator, train=False,
+                       mesh=None if mesh is None else mesh.only("data"))
 
         def abduct_fn(x_, pa_, noise, generator):
             zs = vae.abduct(x_, pa_, noise=noise, generator=generator, t=t_abduct)
@@ -159,6 +168,8 @@ class DSCM:
             return fn(*args, noise=noise, generator=generator)
 
         vae_out = call(fact_fn, x, _pa)
+        if mesh is not None:  # the global batch's ELBO, inside autograd
+            vae_out = dict(vae_out, elbo=mesh.mean(vae_out["elbo"], "data"))
 
         cf_sum = torch.zeros_like(x)
         cf_sq = torch.zeros_like(x)

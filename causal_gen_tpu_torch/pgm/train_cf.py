@@ -20,6 +20,14 @@ metrics 63-108). An update (``cf_train_step``):
   λ clamped at 0 (train_cf.py:221-223);
 - the EMA of the VAE and λ at ``ema_rate``, counted over the updates made.
 
+Under a ``mesh`` (``parallel/mesh.py``; data parallelism) the batch, the
+intervention and the draws are this rank's rows (``shard_batch`` with
+``microbatches=accu_steps``) and the update is the one-process update at the
+same global batch: ``DSCM.forward(mesh=)`` puts the global batch-mean ELBO
+into the Lagrangian, the gradients are all-reduced before the clip, the
+norm counts each parameter once and the metrics, and so the skip, are the
+global batch's.
+
 ``steps_per_call`` has no counterpart here: the JAX package scans that many
 updates in one dispatch, numerically the same as one at a time, and so
 does this module, one at a time. The host's interventions
@@ -47,6 +55,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from causal_gen_tpu_torch.parallel.tensor import sharded_parameters
 from causal_gen_tpu_torch.pgm.dscm import DSCM
 from causal_gen_tpu_torch.pgm.train_pgm import PGMConfig, preprocess_pgm_batch
 from causal_gen_tpu_torch.train.checkpoint import write_payload
@@ -148,13 +157,14 @@ def _rows(tree: Dict[str, Tensor], sl: slice) -> Dict[str, Tensor]:
 def cf_train_step(cfg: CFConfig, state: CFTrainState, batch: Dict[str, Tensor],
                   do: Dict[str, Tensor], do_mask: Dict[str, Tensor],
                   noise: Optional[Sequence[Iterable[Tensor]]] = None,
-                  generator: Optional[torch.Generator] = None) -> Dict[str, Tensor]:
+                  generator: Optional[torch.Generator] = None, mesh=None) -> Dict[str, Tensor]:
     """One update (causal_gen_tpu/pgm/train_cf.py:166-262) in place on
     ``state``, on ``batch`` (PGM space, ``preprocess_pgm_batch``) under the
     dense intervention (``do``, ``do_mask``: ``dense_intervention``).
     ``noise[i]`` gives microbatch i's draws, else they come from
-    ``generator``. Returns the metrics as device scalars, λ before the
-    update, and ``skipped`` as a float."""
+    ``generator``. ``mesh``: this rank's part of a parallel update (module
+    docstring). Returns the metrics as device scalars, λ before the update,
+    and ``skipped`` as a float."""
     dscm = state.dscm
     accu = max(int(cfg.accu_steps), 1)
     micro = batch["x"].shape[0] // accu
@@ -166,14 +176,20 @@ def cf_train_step(cfg: CFConfig, state: CFTrainState, batch: Dict[str, Tensor],
         sl = slice(i * micro, (i + 1) * micro)
         out = dscm.forward(_rows(batch, sl), _rows(do, sl), cf_particles=cfg.cf_particles,
                            beta=cfg.beta, do_mask=_rows(do_mask, sl), generator=generator,
-                           noise=None if noise is None else noise[i])
+                           noise=None if noise is None else noise[i], mesh=mesh)
         (out["loss"] / accu).backward()
         for k in TERMS:
             sums[k] = sums[k] + out[k].detach() / accu
     for p in params:  # a parameter no loss reached takes a zero gradient, as in JAX
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    grad_norm = clip_by_global_norm([p.grad for p in params], cfg.grad_clip)
+    norm = None
+    if mesh is not None:
+        sharded = sharded_parameters(dscm.vae)
+        sums = mesh.reduce_metrics(sums)
+        mesh.reduce_gradients(params, sharded)
+        norm = mesh.grad_norm(params, sharded)
+    grad_norm = clip_by_global_norm([p.grad for p in params], cfg.grad_clip, norm)
     nan_found = torch.isnan(sums["loss"]) | torch.isnan(grad_norm)
     lmbda = dscm.lmbda.detach()[0].clone()
     ok = bool(((grad_norm < cfg.grad_skip) & ~nan_found).item())

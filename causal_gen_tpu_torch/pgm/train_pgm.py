@@ -23,6 +23,13 @@ the 1-based update). A parameter no loss reaches takes a zero gradient, so
 AdamW still decays it, as optax does. The step runs eagerly; the JAX step
 is one jitted program.
 
+Both steps take a ``mesh`` (``parallel/mesh.py``; data parallelism): the
+batch is then this rank's rows, the gradients are all-reduced before the
+clip and the metrics are the global batch's. The supervised loss divides by
+the local batch, a mean, so its gradients are averaged over ``data``; the
+semi-supervised loss is a sum over both batches, so its gradients and its
+metrics are summed over ``data``.
+
 The semi-supervised step takes ``draws``, the guide's draws by site
 (``guide_sample``'s ``noise``), else they come from a ``torch.Generator``.
 Checkpoints are ``torch.save`` files with a ``.meta.json`` beside
@@ -155,13 +162,19 @@ def site_logprobs(cfg: PGMConfig, model: nn.Module, batch: Dict[str, Tensor],
     return model.anticausal_logprob(batch["x"], **obs)
 
 
-def _update(cfg: PGMConfig, state: PGMTrainState) -> Tensor:
-    """Clip, AdamW, EMA; returns the gradient norm before clipping."""
+def _update(cfg: PGMConfig, state: PGMTrainState, mesh=None, batch_sum: bool = False
+            ) -> Tensor:
+    """(Under ``mesh``, reduce the gradients,) clip, AdamW, EMA; returns the
+    gradient norm before clipping."""
     params = list(state.model.parameters())
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    grad_norm = clip_by_global_norm([p.grad for p in params], cfg.grad_clip)
+    norm = None
+    if mesh is not None:
+        mesh.reduce_gradients(params, batch_sum=batch_sum)
+        norm = mesh.grad_norm(params)
+    grad_norm = clip_by_global_norm([p.grad for p in params], cfg.grad_clip, norm)
     state.optimizer.step()
     state.optimizer.zero_grad(set_to_none=True)
     state.step += 1
@@ -169,7 +182,7 @@ def _update(cfg: PGMConfig, state: PGMTrainState) -> Tensor:
     return grad_norm
 
 
-def train_step(cfg: PGMConfig, state: PGMTrainState, batch: Dict[str, Tensor]
+def train_step(cfg: PGMConfig, state: PGMTrainState, batch: Dict[str, Tensor], mesh=None
                ) -> Dict[str, Tensor]:
     """One ``sup_pgm`` or ``sup_aux`` update (causal_gen_tpu/pgm/train_pgm.py:
     136-183), in place on ``state``. Returns the loss, the gradient norm and
@@ -179,9 +192,11 @@ def train_step(cfg: PGMConfig, state: PGMTrainState, batch: Dict[str, Tensor]
     loss = -sum(torch.sum(v) for v in lps.values()) / bs
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
-    grad_norm = _update(cfg, state)
-    return {"loss": loss.detach(), "grad_norm": grad_norm,
-            **{k: torch.sum(v.detach()) / bs for k, v in lps.items()}}
+    grad_norm = _update(cfg, state, mesh)
+    metrics = {"loss": loss.detach(), **{k: torch.sum(v.detach()) / bs for k, v in lps.items()}}
+    if mesh is not None:
+        metrics = mesh.reduce_metrics(metrics)
+    return {**metrics, "grad_norm": grad_norm}
 
 
 def semi_sup_loss(cfg: PGMConfig, model: nn.Module, batch_l: Dict[str, Tensor],
@@ -214,15 +229,19 @@ def semi_sup_loss(cfg: PGMConfig, model: nn.Module, batch_l: Dict[str, Tensor],
 def semi_sup_step(cfg: PGMConfig, state: PGMTrainState, batch_l: Dict[str, Tensor],
                   batch_u: Dict[str, Tensor], n_labelled: int,
                   draws: Optional[Dict[str, Tensor]] = None,
-                  generator: Optional[torch.Generator] = None) -> Dict[str, Tensor]:
+                  generator: Optional[torch.Generator] = None, mesh=None) -> Dict[str, Tensor]:
     """One semi-supervised update (causal_gen_tpu/pgm/train_pgm.py:247-262),
-    in place on ``state``."""
+    in place on ``state``. Under ``mesh`` both batches and ``draws`` are
+    this rank's rows."""
     loss, parts = semi_sup_loss(cfg, state.model, batch_l, batch_u, n_labelled, draws,
                                 generator)
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
-    grad_norm = _update(cfg, state)
-    return {"loss": loss.detach(), "grad_norm": grad_norm, **parts}
+    grad_norm = _update(cfg, state, mesh, batch_sum=True)
+    metrics = {"loss": loss.detach(), **parts}
+    if mesh is not None:
+        metrics = mesh.reduce_metrics(metrics, batch_sum=True)
+    return {**metrics, "grad_norm": grad_norm}
 
 
 def ss_train_epoch(cfg: PGMConfig, state: PGMTrainState, loader_l, loader_u, n_labelled: int,

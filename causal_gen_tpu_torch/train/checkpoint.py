@@ -10,6 +10,12 @@ the stored config is authoritative on reload). The writer keeps the newest
 ``<dir>/checkpoint`` links at the best. It writes synchronously: a save at
 the end of an evaluation costs little next to the epoch. It does not read
 Orbax checkpoints of the JAX package.
+
+A tensor-parallel model (``parallel/tensor.py``) saves whole tensors:
+``state_payload`` gathers its shards and their AdamW moments (every rank
+calls it; one writes), and ``restore_train_state`` cuts a whole payload to
+the shards of the model it is given. So a checkpoint of a sharded run loads
+into one process, and one process's into a sharded run.
 """
 
 from __future__ import annotations
@@ -21,16 +27,22 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from causal_gen_tpu_torch.config import Config
+from causal_gen_tpu_torch.parallel.tensor import (
+    gather_optimizer_state,
+    gather_state,
+    shard_optimizer_state,
+    shard_state,
+)
 from causal_gen_tpu_torch.train.state import TrainState, init_train_state
 
 
 def state_payload(state: TrainState) -> Dict[str, Any]:
-    """TrainState -> checkpoint payload of tensors and ints (on the CPU)."""
-    cpu = lambda sd: {k: v.detach().cpu() for k, v in sd.items()}  # noqa: E731
+    """TrainState -> checkpoint payload of tensors and ints (on the CPU),
+    every tensor whole."""
     return {
-        "params": cpu(state.model.state_dict()),
-        "ema_params": cpu(state.ema.state_dict()),
-        "opt_state": state.optimizer.state_dict(),
+        "params": gather_state(state.model),
+        "ema_params": gather_state(state.ema),
+        "opt_state": gather_optimizer_state(state.optimizer, state.model),
         "scheduler": state.scheduler.state_dict(),
         "step": state.step,
         "ema_updates": state.ema_updates,
@@ -134,11 +146,13 @@ def load_checkpoint(path: str) -> Tuple[Config, Dict[str, Any], Dict[str, Any]]:
 def restore_train_state(cfg: Config, model: torch.nn.Module, payload: Dict[str, Any]
                         ) -> TrainState:
     """A TrainState around ``model`` (on its device) with the payload's
-    parameters, EMA, optimizer and schedule state and counters."""
-    model.load_state_dict(payload["params"])
+    parameters, EMA, optimizer and schedule state and counters (cut to
+    ``model``'s shards where it is tensor-parallel)."""
+    model.load_state_dict(shard_state(model, payload["params"]))
     state = init_train_state(cfg, model)
-    state.ema.load_state_dict(payload["ema_params"])
-    state.optimizer.load_state_dict(payload["opt_state"])
+    state.ema.load_state_dict(shard_state(state.ema, payload["ema_params"]))
+    state.optimizer.load_state_dict(
+        shard_optimizer_state(state.optimizer, model, payload["opt_state"]))
     state.scheduler.load_state_dict(payload["scheduler"])
     state.step = int(payload["step"])
     state.ema_updates = int(payload["ema_updates"])

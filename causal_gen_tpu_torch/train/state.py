@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import copy
 from dataclasses import dataclass
-from typing import Iterable, List, Tuple
+from typing import Iterable, List, Optional, Tuple
 
 import torch
 from torch import Tensor, nn
@@ -57,10 +57,14 @@ def global_norm(tensors: List[Tensor]) -> Tensor:
     return torch.sqrt(torch.sum(torch.stack(torch._foreach_norm(tensors)) ** 2))
 
 
-def clip_by_global_norm(tensors: List[Tensor], max_norm: float) -> Tensor:
+def clip_by_global_norm(tensors: List[Tensor], max_norm: float,
+                        norm: Optional[Tensor] = None) -> Tensor:
     """In place, torch.nn.utils.clip_grad_norm_ semantics: scale by
     max_norm / (norm + 1e-6) when that is below 1 (reference trainer.py:67-69).
-    Returns the norm before clipping."""
-    norm = global_norm(tensors)
+    ``norm`` is the tensors' global norm where the caller has it (a parallel
+    step's, over every rank's shards), else computed here. Returns the norm
+    before clipping."""
+    if norm is None:
+        norm = global_norm(tensors)
     torch._foreach_mul_(tensors, torch.clamp(max_norm / (norm + 1e-6), max=1.0))
     return norm

@@ -15,6 +15,19 @@ With ``cfg.remat`` the model recomputes its rematerialised blocks in each
 microbatch's backward, which follows that microbatch's forward, so a
 recompute replays that microbatch's own draws (``models/remat.py``).
 
+Under a ``mesh`` (``parallel/mesh.py``) the step takes this rank's rows
+(``shard_batch`` with ``microbatches=accu_steps``, so each microbatch is the
+one-process step's; with ``space``, ``shard_batch_spatial``) and gives the
+one-process step's result at the same global batch: the model takes the
+mesh (the free-bits clamp of the global batch-mean KL, spatial halos), the
+gradients are all-reduced after the microbatch loop and before the clip,
+the norm counts each parameter once and the metrics, and so the skip, are
+the global batch's. Injected draws are the rank's rows (each sharded
+block's whole map, ``models/hvae.py``); drawn from a generator, each
+``data`` rank seeds its own (``Mesh.generator``), and K1's Philox seeds come
+from it: another stream than one process draws (``cond_prior``'s dropout
+option is then one a shard, not one a batch), which is not a fault.
+
 Batches come from ``data/loader.py`` as numpy arrays, x uint8 NHWC (NDHWC for
 volumes); they cross to the device as uint8 NCHW (NCDHW) and are scaled to
 [-1, 1] there. The train step runs the model with ``train=True``
@@ -33,6 +46,7 @@ import torch
 from torch import Tensor, nn
 
 from causal_gen_tpu_torch.config import Config
+from causal_gen_tpu_torch.parallel.tensor import sharded_parameters
 from causal_gen_tpu_torch.train.checkpoint import CheckpointWriter, state_payload
 from causal_gen_tpu_torch.train.state import TrainState, clip_by_global_norm, init_train_state
 from causal_gen_tpu_torch.utils.ema import ema_update
@@ -56,13 +70,14 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, T
 
 
 def train_step(cfg: Config, state: TrainState, batch: Dict[str, Tensor], noise: Noise = None,
-               generator: Optional[torch.Generator] = None) -> Dict[str, Tensor]:
+               generator: Optional[torch.Generator] = None, mesh=None) -> Dict[str, Tensor]:
     """One optimizer step over ``cfg.accu_steps`` microbatches of ``batch``
     (x uint8 NC(D)HW, pa), in place on ``state``. ``noise`` gives each
     microbatch's draws (the parity mode: the dropout option under
     ``cond_prior`` with ``cond_drop_from``, then the posterior normals); else
-    they come from ``generator``. Returns the metrics: device scalars, and ``skipped`` as a
-    float."""
+    they come from ``generator``. ``mesh``: this rank's part of a
+    parallel step (module docstring). Returns the metrics: device scalars,
+    and ``skipped`` as a float."""
     model = state.model
     accu = cfg.accu_steps
     micro = batch["x"].shape[0] // accu
@@ -77,7 +92,7 @@ def train_step(cfg: Config, state: TrainState, batch: Dict[str, Tensor], noise: 
                 if cfg.beta_warmup_steps > 0 else cfg.beta)
         out = model(preprocess_x(batch["x"][sl]), batch["pa"][sl], beta=beta,
                     noise=None if noise is None else iter(noise[i]), generator=generator,
-                    train=True)
+                    train=True, mesh=mesh)
         (out["elbo"] / accu).backward()
         for k in sums:
             sums[k] = sums[k] + out[k].detach() / accu
@@ -85,7 +100,13 @@ def train_step(cfg: Config, state: TrainState, batch: Dict[str, Tensor], noise: 
     for p in params:  # a parameter no loss reached gets a zero gradient, as in JAX
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    grad_norm = clip_by_global_norm([p.grad for p in params], cfg.grad_clip)
+    norm = None
+    if mesh is not None:
+        sharded = sharded_parameters(model)
+        sums = mesh.reduce_metrics(sums)
+        mesh.reduce_gradients(params, sharded)
+        norm = mesh.grad_norm(params, sharded)
+    grad_norm = clip_by_global_norm([p.grad for p in params], cfg.grad_clip, norm)
     nan_found = torch.isnan(sums["nll"]) | torch.isnan(sums["kl"]) | torch.isnan(grad_norm)
     ok = bool(((grad_norm < cfg.grad_skip) & ~nan_found).item())
     if ok:

@@ -149,8 +149,9 @@ Phases, one progress line each:
                rel); the main paths with their launch counts (ukbb192 K1 +
                K1-bwd 80 + 80, with remat 160 + 80; mimic192 76 + 76;
                morphomnist 40 + 40; the ukbb192 eval step under
-               inference_mode K2 200 and K1 80), the median of 10 updates,
-               peak memory and the profiler; cli.train_cf on the card (1
+               inference_mode K2 200 and K1 80), the median of 6 updates,
+               peak memory, the profiler on the ukbb192 update (only:
+               each profile takes tens of seconds); cli.train_cf on the card (1
                epoch of 2 updates with the valid sweeps and the panel's
                forward, then --resume)
   23. remat  - the flagships' training setup: block remat (stage_scan: the
@@ -182,6 +183,20 @@ Phases, one progress line each:
                modes and ukbb64 forward against this tree's, in turns (parent,
                this, this, parent), each a process of its own; K4's output
                digests must agree
+  27. parallel - the mesh path (parallel/): K2 against its plain version at
+               the spatially sharded ukbb192 forward's slab shapes; NCCL at
+               world 1 (a morphomnist step through the mesh path against the
+               same step without it); 2 gloo ranks on the one card (cuda:0):
+               whether gloo's all_gather takes a CUDA tensor (PyTorch's table
+               says no; the collective layer stages it through host memory),
+               the registry's ukbb192 bf16 data-parallel step at global bs 32
+               with injected draws against one process (ELBO terms 2e-2 rel)
+               with each rank's K1 / K1-bwd launches, its step ms and peak
+               memory a rank; float32 at global bs 4 (TF32 off): data, tensor
+               (from 256 channels) and spatial parallel steps, parameters
+               within 2 lr of one process; the spatially sharded bf16
+               forward at bs 4 with K2's launches a rank. Its numbers are 2
+               ranks on one card, not multi-GPU scaling figures
 With --tune-k2 it only times the float32 K2 kernel's best candidate launches
 at every ukbb shape (tune_k2) and prints the fastest as a table. With
 --phases it runs only the phases named (after device and build) and prints
@@ -3541,7 +3556,8 @@ CF_CONFIGS = {
                         intensity_weight=0.05,
                         thickness_calib=(1.2231597663423281, 0.5294727873345971)),
 }
-CF_TIMED = 10  # updates a timed path's median is taken over
+CF_TIMED = 6  # updates a timed path's median is taken over (10 before the parallel
+# phase was added: cut to keep the whole run well inside DEADLINE_S)
 
 
 def cf_config(name, **overrides):
@@ -3687,13 +3703,13 @@ def cf_remat_grads(name, cf, bs, seed, d=None):
     return {"max_rel_err": rel, "launches_off": c0, "launches_on": c1}
 
 
-def cf_timed_update(name, cf, remat, seed, d=None):
+def cf_timed_update(name, cf, remat, seed, d=None, profile=True):
     """The main path of a CF update at ``cf.bs``: a random single-parent
     dense intervention from the batch, then ``cf_train_step``, with the launch
     counts read around one update (K1 and K1-bwd on each posterior pass; with
     remat K1 runs again in each recompute); the median of CF_TIMED updates
-    on the host clock, the peak memory and the profiler's device share.
-    ``d`` is the DSCM to use (else one is built)."""
+    on the host clock, the peak memory and (``profile``) the profiler's
+    device share. ``d`` is the DSCM to use (else one is built)."""
     import numpy as np
     import torch
 
@@ -3745,12 +3761,13 @@ def cf_timed_update(name, cf, remat, seed, d=None):
                     f"{float(m['grad_norm']):.4g}")
     # one update: the profiler's processing of its ~33,000-45,000 events
     # takes tens of seconds a call
-    out["profile"] = profile_calls(update, 1, "update")
+    if profile:
+        out["profile"] = profile_calls(update, 1, "update")
     d.remat = False
     return out
 
 
-def cf_eval_path(cf, seed, d=None):
+def cf_eval_path(cf, seed, d=None, profile=True):
     """The ukbb192 CF eval step (pgm/train_cf.py::make_cf_eval_step: the
     EMA's DSCM.forward and the predictor on the counterfactuals, under
     inference_mode) at cf.bs under a random single-parent intervention: K2
@@ -3799,7 +3816,7 @@ def cf_eval_path(cf, seed, d=None):
                     f"{counts['fused_light_block_tc']}, K1 {counts['fused_sample_kl']}; median "
                     f"{ms:.3f} ms over {CF_TIMED} (min {min(times):.3f}, max {max(times):.3f})")
     return {"launches": counts, "eval_ms": ms, "eval_ms_all": times,
-            "profile": profile_calls(run, 1, "eval")}
+            **({"profile": profile_calls(run, 1, "eval")} if profile else {})}
 
 
 def cf_datasets(n_train, n_valid, seed):
@@ -3952,13 +3969,16 @@ def phase_cf_train():
                                 for k, v in out["remat_grads"].items()))
     lap("remat grads")
     out["ukbb192"] = cf_timed_update("ukbb192", ukbb, False, SEED + 154, ukbb_dscm())
-    out["ukbb192_remat"] = cf_timed_update("ukbb192", ukbb, True, SEED + 154, ukbb_dscm())
-    out["ukbb192_eval"] = cf_eval_path(ukbb, SEED + 155, ukbb_dscm())
+    # only the flagship's plain update is profiled: each profile takes tens
+    # of seconds, and the run must end inside DEADLINE_S
+    out["ukbb192_remat"] = cf_timed_update("ukbb192", ukbb, True, SEED + 154, ukbb_dscm(),
+                                           profile=False)
+    out["ukbb192_eval"] = cf_eval_path(ukbb, SEED + 155, ukbb_dscm(), profile=False)
     del uk_d
     torch.cuda.empty_cache()
     lap("ukbb192 paths")
-    out["mimic192"] = cf_timed_update("mimic192", mimic, False, SEED + 156)
-    out["morphomnist"] = cf_timed_update("morphomnist", morph, False, SEED + 157)
+    out["mimic192"] = cf_timed_update("mimic192", mimic, False, SEED + 156, profile=False)
+    out["morphomnist"] = cf_timed_update("morphomnist", morph, False, SEED + 157, profile=False)
     lap("mimic192 and morphomnist paths")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cf_") as save_dir:
         out["cli"] = cf_cli_run(save_dir, morph)
@@ -4381,6 +4401,306 @@ def phase_e2e():
     return out
 
 
+# ---- 27. parallel: the mesh path of parallel/ on the card ----------------------
+PAR_BS = 32  # the data-parallel check's global batch: 16 a rank
+PAR_F32_BS = 4  # the float32 checks' global batch (data, tensor and spatial)
+PAR_LABEL = "2 ranks on one H100 over gloo"
+
+
+def par_inputs(cfg, seed, device):
+    """A global batch of cfg.bs (uint8 NC(D)HW x, parents uniform in [-1, 1])
+    and the whole-map normals of every stochastic block, drawn on ``device``
+    from a seeded generator, so every rank draws the same."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    shape = (cfg.bs, cfg.input_channels) + (cfg.input_res,) * cfg.spatial_dims
+    x = torch.randint(0, 256, shape, generator=g, device=device, dtype=torch.uint8)
+    pa = torch.rand((cfg.bs, cfg.context_dim), generator=g, device=device) * 2 - 1
+    noise = [torch.randn((cfg.bs, cfg.z_dim) + (r,) * cfg.spatial_dims, generator=g,
+                         device=device) for r in k1_res(cfg)]
+    return {"x": x, "pa": pa}, noise
+
+
+def par_sync(device):
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def par_rows(mesh, noise):
+    """This rank's rows of each whole-map draw (its ``data`` share)."""
+    import torch
+
+    from causal_gen_tpu_torch.parallel import batch_sharding
+
+    return [e[torch.from_numpy(batch_sharding(mesh, len(e))).to(e.device)] for e in noise]
+
+
+def par_step(cfg, batch, noise, device, mesh=None, tp_min=0, spatial=False, n_timed=0):
+    """One train step of a seeded HVAE on ``batch`` with the injected draws
+    (under ``mesh`` on this rank's part): its metrics, the launches around
+    it, its peak memory, and the median host-clock ms of ``n_timed`` more
+    steps; and the state after the first step (when ``n_timed`` is 0)."""
+    import torch
+
+    from causal_gen_tpu_torch.models.hvae import HVAE
+    from causal_gen_tpu_torch.parallel import shard_batch, shard_batch_spatial, shard_params_tp
+    from causal_gen_tpu_torch.train.state import init_train_state
+    from causal_gen_tpu_torch.train.vae_trainer import train_step
+
+    model = HVAE(cfg, device=device, generator=torch.Generator().manual_seed(SEED))
+    if mesh is not None:
+        shard_params_tp(model, mesh, tp_min or 10**9)
+        batch = (shard_batch_spatial if spatial else shard_batch)(mesh, batch)
+        noise = par_rows(mesh, noise)
+    state = init_train_state(cfg, model)
+    cuda = device.type == "cuda"
+    par_sync(device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    m = train_step(cfg, state, batch, noise=[noise], mesh=mesh)
+    par_sync(device)
+    out = {"metrics": {k: float(v) for k, v in m.items()}, "launches": read_counts(),
+           "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9 if cuda else None}
+    if n_timed:
+        times = []
+        for _ in range(n_timed):
+            t0 = time.perf_counter()
+            train_step(cfg, state, batch, noise=[noise], mesh=mesh)
+            par_sync(device)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["step_ms"], out["step_ms_all"] = statistics.median(times), times
+        state = None
+    return out, state
+
+
+def par_rel(got, ref, keys=("elbo", "nll", "kl", "grad_norm")):
+    return {k: abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-30) for k in keys}
+
+
+def par_forward(cfg, batch, noise, device, mesh=None):
+    """A seeded HVAE's forward outside autograd (where its light blocks take
+    K2), under ``mesh`` spatially sharded: ELBO terms (the global batch's)
+    and the launches around it."""
+    import torch
+
+    from causal_gen_tpu_torch.models.hvae import HVAE
+    from causal_gen_tpu_torch.parallel import shard_batch_spatial
+    from causal_gen_tpu_torch.train.vae_trainer import preprocess_x
+
+    model = HVAE(cfg, device=device, generator=torch.Generator().manual_seed(SEED))
+    if mesh is not None:
+        batch = shard_batch_spatial(mesh, batch)
+        noise = par_rows(mesh, noise)
+    reset_counts()
+    with torch.inference_mode():
+        out = model(preprocess_x(batch["x"]), batch["pa"], noise=iter(noise), train=False,
+                    mesh=mesh)
+        if mesh is not None:
+            out = mesh.reduce_metrics({k: out[k] for k in ("elbo", "nll", "kl")})
+    par_sync(device)
+    return {"metrics": {k: float(out[k]) for k in ("elbo", "nll", "kl")},
+            "launches": read_counts()}
+
+
+def parallel_rank(rank, world, device, cfg_bf16, cfg_f32, cfg_fwd):
+    """The parallel phase's checks on one rank of ``world`` (the launcher of
+    ``parallel/launch.py``); rank 0 also runs each check's one-process step
+    and raises where they disagree."""
+    import torch
+    import torch.distributed as dist
+
+    from causal_gen_tpu_torch.parallel import make_mesh
+    from causal_gen_tpu_torch.parallel.tensor import gather_state, sharded_layers
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+    out = {"backend": dist.get_backend(), "device": str(device)}
+    # PyTorch's backend table: gloo's all_gather takes no CUDA tensor
+    probe = torch.ones(2, device=device)
+    try:
+        dist.all_gather([torch.empty_like(probe) for _ in range(world)], probe)
+        out["gloo_all_gather_cuda"] = "moved"
+    except RuntimeError as e:
+        out["gloo_all_gather_cuda"] = "refused: " + str(e).strip().splitlines()[0][:160]
+
+    dp_mesh = make_mesh((world,), ("data",))
+    batch, noise = par_inputs(cfg_bf16, SEED + 200, device)
+    out["dp_bf16"], _ = par_step(cfg_bf16, batch, noise, device, dp_mesh, n_timed=3)
+    if rank == 0:  # one process at the global batch, timed the same way
+        ref, _ = par_step(cfg_bf16, batch, noise, device, n_timed=3)
+        rel = par_rel(out["dp_bf16"]["metrics"], ref["metrics"], ("elbo", "nll", "kl"))
+        out["dp_bf16"].update(ref_metrics=ref["metrics"], ref_launches=ref["launches"], rel=rel,
+                              ref_step_ms=ref["step_ms"], ref_peak_gb=ref["peak_gb"])
+        if max(rel.values()) > 2e-2:
+            raise AssertionError(f"data parallel bf16 step vs one process: {rel}")
+    del batch, noise
+
+    b32, n32 = par_inputs(cfg_f32, SEED + 201, device)
+    ref = ref_params = None
+    if rank == 0:
+        ref, st = par_step(cfg_f32, b32, n32, device)
+        ref_params = gather_state(st.model)
+        del st
+    checks = {"dp_f32": dict(mesh=dp_mesh),
+              "tp_f32": dict(mesh=make_mesh((1, world), ("data", "model")), tp_min=256),
+              "sp_f32": dict(mesh=make_mesh((1, world), ("data", "space")), spatial=True)}
+    for name, kw in checks.items():
+        res, st = par_step(cfg_f32, b32, n32, device, **kw)
+        res["n_sharded_layers"] = len(sharded_layers(st.model))
+        got = gather_state(st.model)
+        del st
+        if rank == 0:
+            errs = torch.cat([(got[k] - ref_params[k]).abs().flatten() for k in got])
+            res["param_err"] = float(errs.max())
+            res["params_over_1e-5"] = [int((errs > 1e-5).sum()), errs.numel()]
+            res["rel"] = par_rel(res["metrics"], ref["metrics"])
+            tol = 1e-3 if name == "sp_f32" else 1e-4  # SP: the NLL's reassociation (JAX's 1e-3)
+            # 2 lr cannot fail after Adam's first update (lr g / (|g| + eps)): the
+            # share beyond 1e-5 catches a wrong gradient, which moves most elements
+            if (res["param_err"] > 2 * cfg_f32.lr or max(res["rel"].values()) > tol
+                    or res["params_over_1e-5"][0] > 1e-3 * errs.numel()):
+                raise AssertionError(f"{name} vs one process: rel {res['rel']}, parameters "
+                                     f"{res['param_err']:.3e} (2 lr = {2 * cfg_f32.lr:.1e}), "
+                                     f"{res['params_over_1e-5']} beyond 1e-5 (at most 1e-3)")
+        out[name] = res
+    if rank == 0:
+        out["f32_ref_metrics"] = ref["metrics"]
+    del b32, n32, ref_params
+
+    bf, nf = par_inputs(cfg_fwd, SEED + 202, device)
+    out["sp_forward_bf16"] = par_forward(cfg_fwd, bf, nf, device,
+                                         checks["sp_f32"]["mesh"])
+    if rank == 0:
+        ref = par_forward(cfg_fwd, bf, nf, device)
+        rel = par_rel(out["sp_forward_bf16"]["metrics"], ref["metrics"], ("elbo", "nll", "kl"))
+        out["sp_forward_bf16"].update(ref_launches=ref["launches"], rel=rel)
+        k2 = "fused_light_block"
+        if (max(rel.values()) > 2e-2 or out["sp_forward_bf16"]["launches"][k2] == 0
+                or out["sp_forward_bf16"]["launches"][k2] != ref["launches"][k2]):
+            raise AssertionError(f"spatially sharded bf16 forward: rel {rel}, launches "
+                                 f"{out['sp_forward_bf16']['launches']} vs {ref['launches']}")
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def nccl_rank(rank, world, device, cfg):
+    """NCCL at world 1: one Morpho-MNIST train step through the mesh path
+    against the same step without a mesh."""
+    from causal_gen_tpu_torch.parallel import make_mesh
+    import torch.distributed as dist
+
+    batch, noise = par_inputs(cfg, SEED + 203, device)
+    got, _ = par_step(cfg, batch, noise, device, make_mesh((1,), ("data",)))
+    ref, _ = par_step(cfg, batch, noise, device)
+    rel = par_rel(got["metrics"], ref["metrics"])
+    if max(rel.values()) > 1e-4 or got["launches"] != ref["launches"]:
+        raise AssertionError(f"NCCL world-1 step vs no mesh: {rel}, {got['launches']}")
+    return {"backend": dist.get_backend(), "rel": rel, **got}
+
+
+def k2_slab_check(cfg, bs, device):
+    """K2 against its plain version at the spatially sharded forward's slab
+    shapes: each covered ukbb192 block at a sharded resolution, on a border
+    rank's slab (res / 2 + 2 rows, res wide) at ``bs``, bf16 and float32."""
+    import torch
+
+    from causal_gen_tpu_torch.models.hvae import HVAE
+    from causal_gen_tpu_torch.ops.fused_block import fused_light_block, fused_light_block_ref
+
+    vae = HVAE(cfg, device="cpu")
+    shapes = sorted(k2_blocks_by_shape(cfg, vae))
+    errs = {}
+    for c, cb, res in shapes:
+        if res % 4:
+            continue
+        for dtype in (torch.bfloat16, torch.float32):
+            args = k2_inputs(bs, c, cb, res // 2 + 2, res, dtype, True, device)
+            got = fused_light_block(*args)
+            ref = fused_light_block_ref(*args)
+            errs[f"{(bs, c, cb, res // 2 + 2, res)} {str(dtype)[6:]}"] = k2_compare(args, got,
+                                                                                  ref)[0]
+    return errs
+
+
+def phase_parallel():
+    """Phase 27 (module docstring)."""
+    import torch
+
+    from causal_gen_tpu_torch.config import get_config
+    from causal_gen_tpu_torch.ops.build import build_all
+    from causal_gen_tpu_torch.parallel.launch import spawn
+
+    t0 = time.perf_counter()
+    build_all()  # the ranks find the kernels built
+    torch.backends.cudnn.allow_tf32 = False  # the float32 plain versions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    k2_errs = k2_slab_check(ukbb_config(), PAR_F32_BS, dev)
+    log("parallel", f"K2 vs its plain version at {len(k2_errs)} slab shapes of the spatially "
+                    f"sharded ukbb192 forward (bf16 and float32): max err "
+                    f"{max(k2_errs.values()):.3e}")
+    nccl = spawn(nccl_rank, 1, (get_config("morphomnist", bs=BS),), device="cuda",
+                 backend="nccl", timeout=300)[0]
+    log("parallel", f"NCCL at world 1 ({nccl['backend']}): a morphomnist train step bs {BS} "
+                    f"through the mesh path == without it (rel {max(nccl['rel'].values()):.1e}), "
+                    f"launches {nccl['launches']}")
+    ranks = spawn(parallel_rank, 2,
+                  (ukbb_config("bfloat16", PAR_BS),
+                   ukbb_config("float32", PAR_F32_BS).replace(lr_warmup_steps=0),
+                   ukbb_config("bfloat16", PAR_F32_BS)), device="cuda", backend="gloo",
+                  timeout=600)
+    r0 = ranks[0]
+    log("parallel", f"gloo all_gather on a CUDA tensor: {r0['gloo_all_gather_cuda']}; "
+                    f"the collective layer stages gloo's all-gather and halo exchanges of "
+                    f"CUDA tensors through host memory all the same (all-reduce and "
+                    f"broadcast go to gloo as they are)")
+    dp = r0["dp_bf16"]
+    log("parallel", f"ukbb192 bf16 DP step, global bs {PAR_BS} (16 a rank), {PAR_LABEL}: "
+                    f"ELBO terms vs one process rel "
+                    + ", ".join(f"{k} {v:.2e}" for k, v in dp["rel"].items())
+                    + "; K1 / K1-bwd launches a rank "
+                    + ", ".join(f"{r['dp_bf16']['launches']['fused_sample_kl']} + "
+                                f"{r['dp_bf16']['launches']['fused_sample_kl_bwd']}"
+                                for r in ranks)
+                    + f" (one process: {dp['ref_launches']['fused_sample_kl']} + "
+                      f"{dp['ref_launches']['fused_sample_kl_bwd']})")
+    for name in ("dp_f32", "tp_f32", "sp_f32"):
+        c = r0[name]
+        log("parallel", f"{name} ukbb192 float32 global bs {PAR_F32_BS}: parameters after the "
+                        f"update within {c['param_err']:.2e} of one process (2 lr "
+                        f"{2e-3:.0e}; {c['params_over_1e-5'][0]} of "
+                        f"{c['params_over_1e-5'][1]} beyond 1e-5, at most a thousandth), "
+                        f"metrics rel "
+                        f"{max(c['rel'].values()):.2e}, {c['n_sharded_layers']} column-parallel "
+                        f"layers")
+    f = r0["sp_forward_bf16"]
+    log("parallel", f"spatially sharded ukbb192 bf16 forward bs {PAR_F32_BS}: K2 launches a "
+                    f"rank {[r['sp_forward_bf16']['launches']['fused_light_block'] for r in ranks]}"
+                    f" (one process {f['ref_launches']['fused_light_block']}), ELBO terms rel "
+                    f"{max(f['rel'].values()):.2e}")
+    seconds = time.perf_counter() - t0
+    log("parallel", f"{PAR_LABEL} (not a multi-GPU scaling figure): DP bf16 step "
+                    + ", ".join(f"rank {i} {r['dp_bf16']['step_ms']:.1f} ms "
+                                f"(peak {r['dp_bf16']['peak_gb']:.2f} GB)"
+                                for i, r in enumerate(ranks))
+                    + f"; one process at bs {PAR_BS} in the same call {dp['ref_step_ms']:.1f} ms "
+                      f"(peak {dp['ref_peak_gb']:.2f} GB); phase {seconds:.1f} s")
+    launches = {f"train_step ukbb192 bf16 DP rank {i} of 2 ({PAR_LABEL})": r["dp_bf16"]["launches"]
+                for i, r in enumerate(ranks)}
+    launches.update({f"HVAE.forward ukbb192 bf16 SP rank {i} of 2 ({PAR_LABEL})":
+                     r["sp_forward_bf16"]["launches"] for i, r in enumerate(ranks)})
+    launches["train_step morphomnist DP world 1 (NCCL)"] = nccl["launches"]
+    return {"label": PAR_LABEL, "k2_slab_errs": k2_errs,
+            "k2_slab_max_abs_err": {d: max(v for k, v in k2_errs.items() if k.endswith(d))
+                                    for d in ("bfloat16", "float32")}, "nccl": nccl, "ranks": ranks, "launches": launches,
+            "seconds": seconds}
+
+
 def main() -> int:
     import torch
 
@@ -4436,7 +4756,8 @@ def main() -> int:
         ("pgm_train", lambda: {**phase_pgm_train(), **phase_pgm_train(("semi_sup_mimic",))}),
         ("dense_cf", lambda: phase_dense_cf(cfg)), ("cmnist_cf", phase_cmnist_cf),
         ("simple_vae", phase_simple_vae), ("cf_train", phase_cf_train),
-        ("remat", phase_remat), ("viz", phase_viz), ("e2e", phase_e2e)]
+        ("remat", phase_remat), ("viz", phase_viz), ("e2e", phase_e2e),
+        ("parallel", phase_parallel)]
     chosen = None if args.phases is None else set(args.phases.split(","))
     if chosen is not None and not chosen <= {n for n, _ in phases}:
         raise SystemExit(f"--phases: unknown {sorted(chosen - {n for n, _ in phases})}")
@@ -4458,7 +4779,7 @@ def main() -> int:
     uk, uk_samp, uk_train, uk64 = res["ukbb"], res["ukbb-sample"], res["ukbb-train"], res["ukbb64"]
     mim, cp, vol, pgm = res["mimic"], res["cond_prior"], res["vol3d"], res["pgm_train"]
     dcf, ccf, svae, cft = res["dense_cf"], res["cmnist_cf"], res["simple_vae"], res["cf_train"]
-    rem, vz, e2e = res["remat"], res["viz"], res["e2e"]
+    rem, vz, e2e, par = res["remat"], res["viz"], res["e2e"], res["parallel"]
     turns = phase_turns(os.path.abspath(args.parent)) if args.parent else None
     # launches on the main paths, each counted from 0: DSCM.forward (the
     # Morpho-MNIST, ukbb192, ukbb64 and mimic192 serving slices),
@@ -4496,6 +4817,9 @@ def main() -> int:
     by_path.update({f"write_images {n}": v["launches"] for n, v in vz.items()})
     by_path.update({f"e2e_synth_torch ukbb192 flagship stage {k}": v["launches"]
                     for k, v in e2e["stages"].items()})
+    # the parallel path: each rank's data-parallel ukbb192 step and spatially sharded
+    # forward (2 ranks on one card over gloo), and the NCCL world-1 step
+    by_path.update(par["launches"])
 
     # K2's float32 kernel also runs in the float32 card-vs-CPU checks, each
     # counted from 0; those launches are listed apart
@@ -4553,16 +4877,19 @@ def main() -> int:
             ", ".join(map(str, K2_SHAPES)) + ", with and without biases, and phase dense_cf "
             "at the ukbb192 dense path's shapes, bs 2, with biases); ms, plain_ms, "
             "library_ms (cuDNN conv pair) and bound_ms at (32,32,192,192) b=8; times holds "
-            "every ukbb192 shape",
-            dict(k2, max_abs_err=max(k2["max_abs_err_bf16"], dcf["ukbb192"]["k2_max_abs_err"])),
+            "every ukbb192 shape; phase parallel at the spatially sharded forward's slab shapes",
+            dict(k2, max_abs_err=max(k2["max_abs_err_bf16"], dcf["ukbb192"]["k2_max_abs_err"],
+                                     par["k2_slab_max_abs_err"]["bfloat16"])),
             times=k2["times"], per_path=k2["per_path"]),
         row("fused_light_block_simt", "causal_gen_tpu_torch/csrc/fused_block.cu",
             "causal_gen_tpu/ops/fused_block.py:190",
             "phase K2 (float32 CUDA-core kernel, TF32 off; plain version at the same shapes and "
             "ukbb64's, with and without biases); ms, plain_ms, library_ms (cuDNN conv pair, "
             "TF32 off) and bound_ms at (32,64,32,32) b=16, the ukbb64 shape of most launches; "
-            "times_ukbb64 and times_ukbb192 hold every shape",
-            dict(k2["f32"], max_abs_err=k2["max_abs_err_f32"]),
+            "times_ukbb64 and times_ukbb192 hold every shape; phase parallel at the spatially "
+            "sharded forward's slab shapes",
+            dict(k2["f32"], max_abs_err=max(k2["max_abs_err_f32"],
+                                            par["k2_slab_max_abs_err"]["float32"])),
             times_ukbb64=k2["f32_times_ukbb64"], per_path_ukbb64=k2["f32_per_path_ukbb64"],
             times_ukbb192=k2["f32_times_ukbb192"], per_path_ukbb192=k2["f32_per_path_ukbb192"],
             launches_in_float32_checks={p: c["fused_light_block_simt"]
@@ -4576,7 +4903,7 @@ def main() -> int:
               "entry": entry, "ukbb": uk, "ukbb_sample": uk_samp, "ukbb_train": uk_train,
               "ukbb64": uk64, "mimic": mim, "cond_prior": cp, "vol3d": vol, "pgm_train": pgm,
               "dense_cf": dcf, "cmnist_cf": ccf, "simple_vae": svae, "cf_train": cft,
-              "remat": rem, "viz": vz, "e2e": e2e, "turns": turns,
+              "remat": rem, "viz": vz, "e2e": e2e, "parallel": par, "turns": turns,
               "kernels": kernels, "phase_seconds": seconds,
               "total_s": time.perf_counter() - t_start}
     if args.json:

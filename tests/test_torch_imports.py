@@ -123,6 +123,38 @@ def test_the_flagship_training_slice_modules_are_checked(rel):
     assert rel in {str(p.relative_to(ROOT)) for p in _port_sources()}
 
 
+@pytest.mark.parametrize("rel", ["causal_gen_tpu_torch/parallel/__init__.py",
+                                 "causal_gen_tpu_torch/parallel/distributed.py",
+                                 "causal_gen_tpu_torch/parallel/mesh.py",
+                                 "causal_gen_tpu_torch/parallel/collectives.py",
+                                 "causal_gen_tpu_torch/parallel/tensor.py",
+                                 "causal_gen_tpu_torch/parallel/spatial.py",
+                                 "causal_gen_tpu_torch/parallel/launch.py",
+                                 "causal_gen_tpu_torch/parallel/dryrun.py",
+                                 "causal_gen_tpu_torch/train/vae_trainer.py",
+                                 "causal_gen_tpu_torch/train/state.py",
+                                 "causal_gen_tpu_torch/train/checkpoint.py",
+                                 "causal_gen_tpu_torch/pgm/train_pgm.py",
+                                 "causal_gen_tpu_torch/pgm/train_cf.py",
+                                 "causal_gen_tpu_torch/models/simple_vae.py",
+                                 "examples/multihost_train_torch.py",
+                                 "tests/test_torch_parallel_gpu.py"])
+def test_the_parallel_slice_modules_are_checked(rel):
+    """Each module the parallelism slice adds or changes, its twin of the
+    multi-host example and its card test are among those held to the rules
+    above; the twin imports in the JAX-free interpreter below."""
+    assert rel in {str(p.relative_to(ROOT)) for p in _port_sources()}
+
+
+def test_the_rank_helpers_import_no_jax():
+    """tests/torch_dist.py is what each spawned rank of the parallel tests
+    imports: a plain PyTorch process."""
+    path = ROOT / "tests" / "torch_dist.py"
+    bad = [m for m in _imported_modules(ast.parse(path.read_text()))
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
 def test_every_module_imports_without_jax():
     """Import every module of the package in a fresh interpreter that refuses
     JAX and the JAX package."""
