@@ -28,6 +28,7 @@ from causal_gen_tpu_torch.cli.train_cf import build_pgm_from_ckpt, build_vae_fro
 from causal_gen_tpu_torch.data.datasets import make_datasets
 from causal_gen_tpu_torch.data.loader import Loader
 from causal_gen_tpu_torch.eval.cf_eval import eval_cf_loop
+from causal_gen_tpu_torch.utils.cache import setup_compilation_cache
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -57,6 +58,7 @@ def main(argv: Optional[list] = None, datasets: Optional[Dict] = None) -> Dict:
     """Evaluate and print the result; returns it. ``datasets`` replaces the
     files under ``--data_dir`` with in-memory ``ArrayDataset``s (train and
     test), or is a function of the data config that makes them."""
+    setup_compilation_cache()  # this host's build directory (utils/cache.py)
     args, _ = build_parser().parse_known_args(argv)
     device = resolve_device(args.device)
     pgm_cfg, pgm, _ = build_pgm_from_ckpt(args.pgm_path, device)

@@ -52,6 +52,7 @@ from causal_gen_tpu_torch.models.simple_vae import build_vae
 from causal_gen_tpu_torch.train.checkpoint import load_checkpoint, restore_train_state
 from causal_gen_tpu_torch.train.experiment import MetricWriter, setup_directories, setup_logging
 from causal_gen_tpu_torch.train.vae_trainer import train
+from causal_gen_tpu_torch.utils.cache import setup_compilation_cache
 from causal_gen_tpu_torch.utils.viz import write_images
 
 
@@ -114,6 +115,7 @@ def main(argv: Optional[list] = None, datasets: Optional[Dict] = None) -> Tuple:
     """Train; returns (state, history). ``datasets`` replaces the files under
     ``--data_dir`` with in-memory ``ArrayDataset``s (train/valid), or is a
     function of the run's config that makes them."""
+    setup_compilation_cache()  # this host's build directory (utils/cache.py)
     args, _ = build_parser().parse_known_args(argv)
     device = resolve_device(args.device)
     overrides = {

@@ -57,6 +57,7 @@ from causal_gen_tpu_torch.pgm.train_cf import (
 from causal_gen_tpu_torch.pgm.train_pgm import load_pgm_checkpoint, preprocess_pgm_batch
 from causal_gen_tpu_torch.train.checkpoint import CheckpointWriter, load_checkpoint
 from causal_gen_tpu_torch.train.experiment import MetricWriter, setup_directories, setup_logging
+from causal_gen_tpu_torch.utils.cache import setup_compilation_cache
 from causal_gen_tpu_torch.utils.plots import plot_cf
 
 def build_parser() -> argparse.ArgumentParser:
@@ -154,6 +155,7 @@ def main(argv: Optional[list] = None, datasets: Optional[Dict] = None
     """Train; returns (state, history). ``datasets`` replaces the files under
     ``--data_dir`` with in-memory ``ArrayDataset``s (train/valid), or is a
     function of the data config that makes them."""
+    setup_compilation_cache()  # this host's build directory (utils/cache.py)
     args, _ = build_parser().parse_known_args(argv)
     device = resolve_device(args.device)
     pgm_cfg, pgm, _ = build_pgm_from_ckpt(args.pgm_path, device)

@@ -44,6 +44,7 @@ from causal_gen_tpu_torch.pgm.train_pgm import (
     train_pgm,
 )
 from causal_gen_tpu_torch.train.experiment import MetricWriter, setup_directories, setup_logging
+from causal_gen_tpu_torch.utils.cache import setup_compilation_cache
 from causal_gen_tpu_torch.utils.plots import plot_joint
 
 def build_parser() -> argparse.ArgumentParser:
@@ -129,6 +130,7 @@ def main(argv: Optional[list] = None, datasets: Optional[Dict] = None
     """Train; returns (state, history). ``datasets`` replaces the files under
     ``--data_dir`` with in-memory ``ArrayDataset``s (train/valid), or is a
     function of the data config (``data_config``) that makes them."""
+    setup_compilation_cache()  # this host's build directory (utils/cache.py)
     args, _ = build_parser().parse_known_args(argv)
     device = resolve_device(args.device)
     cfg = PGMConfig(dataset=args.dataset, setup=args.setup, seed=args.seed, epochs=args.epochs,

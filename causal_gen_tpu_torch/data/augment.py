@@ -1,10 +1,10 @@
 """Batched host-side image augmentations (numpy, NHWC).
 
-Counterpart of ``causal_gen_tpu/data/augment.py`` and of the fused native pass
-the JAX package binds (``data/native.py``, ``native/augment.cpp``): whole
-batches are gathered, zero-padded, randomly cropped and flipped at once with
-numpy. The random draws are the native pass's, in its order, so a seed gives
-the JAX package's batches.
+Counterpart of ``causal_gen_tpu/data/augment.py``. ``gather_crop_flip`` is the
+plain version of the native pass (``data/native.py``, ``native/augment.cpp``),
+which the loader runs: whole batches gathered, zero-padded, randomly cropped
+and flipped at once with numpy, with the pass's random draws in its order.
+The tests hold the pass against it.
 """
 
 from __future__ import annotations

@@ -19,7 +19,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from causal_gen_tpu_torch.config import Config
-from causal_gen_tpu_torch.data import augment
+from causal_gen_tpu_torch.data import augment, native
 from causal_gen_tpu_torch.data.idx import load_idx
 from causal_gen_tpu_torch.utils.normalization import (
     MORPHOMNIST_MIN_MAX,
@@ -48,6 +48,10 @@ class ArrayDataset:
     columns: Tuple[str, ...]
     aug: Optional[Tuple] = None
 
+    def __post_init__(self):
+        # the native pass reads C-contiguous images; one copy here, not one a batch
+        self.images = np.ascontiguousarray(self.images)
+
     def __len__(self) -> int:
         return self.images.shape[0]
 
@@ -66,7 +70,7 @@ class ArrayDataset:
         rng = rng if rng is not None else np.random.default_rng(0)
         if self.aug is not None and self.aug[0] == "random_crop_flip":
             _, size, padding, hflip_p = self.aug
-            x = augment.gather_crop_flip(self.images, idx, rng, size, padding, hflip_p)
+            x = native.gather_crop_flip(self.images, idx, rng, size, padding, hflip_p)
         elif self.aug is not None and self.aug[0] == "center_pad":
             x = augment.center_pad(self.images[idx], self.aug[1])
         else:

@@ -2,8 +2,9 @@
 
 Each source under ``csrc/`` has a plain C interface and includes no PyTorch
 header, so one ``nvcc`` call builds it in seconds. The shared library goes into
-``causal_gen_tpu_torch/_build/<hash>/``, where the hash covers the source and
-the flags: a later run finds it there and skips the build. ``_build/`` is
+``causal_gen_tpu_torch/_build/<fingerprint>/<hash>/``: the fingerprint names
+the host (``utils/cache.py``), the hash covers the source and the flags, so a
+later run on the same host finds it there and skips the build. ``_build/`` is
 listed in ``.gitignore``. Nothing here runs when a module is imported.
 """
 
@@ -17,8 +18,9 @@ import subprocess
 from pathlib import Path
 from typing import Dict, List
 
+from causal_gen_tpu_torch.utils.cache import build_dir
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
-BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES: Dict[str, Path] = {name: PACKAGE_DIR / "csrc" / f"{name}.cu"
                             for name in ("sample_kl", "dmol_loss", "dmol_sample", "fused_block")}
 # -fmad=false: no multiply-add is contracted, so a kernel rounds one operation
@@ -46,7 +48,7 @@ def library_path(name: str) -> Path:
     """Where the library of kernel ``name`` is built, keyed by source and flags."""
     src = SOURCES[name]
     key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / key / f"lib{name}.so"
+    return Path(build_dir()) / key / f"lib{name}.so"
 
 
 def build_all(names: List[str] = None) -> Dict[str, Path]:

@@ -197,10 +197,24 @@ Phases, one progress line each:
                within 2 lr of one process; the spatially sharded bf16
                forward at bs 4 with K2's launches a rank. Its numbers are 2
                ranks on one card, not multi-GPU scaling figures
+  28. tail   - the last modules: the native augment pass (data/native.py)
+               built here from native/augment.cpp and held byte for byte
+               against its plain version at the ukbb192 flagship's train batch
+               (bs 128, 192^2, padding (9, 18), hflip 0.5, through
+               ArrayDataset.batch) and a ragged batch with hflip 0, both timed;
+               ops/s2d.py's s2d_conv against F.conv2d at a narrow ukbb192 conv
+               (C 32 -> 8, 3x3, 192^2, bs 32) in float32 (TF32 off) and bf16,
+               timed plain against stage-packed; a morphomnist float32 train
+               step at bs 32 under utils/profiling.trace, whose trace
+               tools/trace_ops_torch.py reads for K1's and K1-bwd's 20 kernels
+               each, tools/device_time_torch.py's device ms a step and
+               StepTimer over 5 steps; tools/mfu_torch.py at morphomnist bs
+               256 (ms a step, FLOPs, MFU against the float32 peak)
 With --tune-k2 it only times the float32 K2 kernel's best candidate launches
 at every ukbb shape (tune_k2) and prints the fastest as a table. With
 --phases it runs only the phases named (after device and build) and prints
-no kernels or result line.
+no kernels or result line; `--phases K1,K1-bwd,K3,K4,K2` checks every kernel
+against its plain version alone (tools/tpu_checks.py's counterpart).
 The last two lines are the kernels JSON and the result JSON. Any failure
 exits non-zero without the result line; the whole run stops itself after
 DEADLINE_S. Needs a CUDA device and the rest of the repository; reads no data
@@ -4701,6 +4715,232 @@ def phase_parallel():
             "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# Slice 12: the tail (the native augment pass, space-to-depth convs, the
+# profiling hooks and tools)
+# ---------------------------------------------------------------------------
+
+TAIL_UKBB_BS = 128  # the ukbb192 flagship's HVAE batch (checkpoints/ukbb192_flagship/vae)
+TAIL_POOL = 512  # images the tail's batches are drawn from (a 192^2 uint8 pool, 18.9 MB)
+TAIL_S2D = (32, 32, 8, 192)  # (bs, C, b, res): a narrow ukbb192 light block's first conv
+TAIL_STEP_SCOPE = "tail_train_step"
+
+
+def tail_native():
+    """The native augment pass built on this machine, held byte for byte
+    against its plain version (data/augment.py) at the ukbb192 flagship's
+    train batch (the UKBB loader's aug: padding (pad, 2 pad), hflip) and at a
+    ragged batch with hflip 0, both timed in ms a batch."""
+    import numpy as np
+
+    from causal_gen_tpu_torch.config import get_config
+    from causal_gen_tpu_torch.data import augment, native
+    from causal_gen_tpu_torch.data.datasets import ArrayDataset
+
+    built = native.library_path().is_file()  # by an earlier phase's loader
+    t0 = time.perf_counter()
+    lib = native.build()
+    build_s = None if built else time.perf_counter() - t0
+    cxx = subprocess.run([native.compiler(), "--version"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.splitlines()[0]
+    cfg = get_config("ukbb192")
+    res = cfg.input_res
+    rng = np.random.default_rng(SEED + 90)
+    pool = rng.integers(0, 256, (TAIL_POOL, res, res, 1)).astype(np.uint8)
+    # the UKBB loader's train split (data/datasets.py::ukbb_from_rows)
+    ds = ArrayDataset(images=pool, attrs={"pa": np.zeros((TAIL_POOL, 1), np.float32)},
+                      columns=("pa",),
+                      aug=("random_crop_flip", (res, res), (cfg.pad, 2 * cfg.pad), cfg.hflip))
+    how = "built by an earlier phase's loader" if built else f"built in {build_s:.2f} s"
+    log("tail", f"native pass {how} ({cxx}) into {lib}")
+    out = {"build_s": build_s, "library": str(lib), "compiler": cxx, "cases": {}}
+    cases = {f"ukbb192 flagship train batch bs {TAIL_UKBB_BS}":
+             (TAIL_UKBB_BS, ds.aug[1], ds.aug[2], ds.aug[3]),
+             "ragged bs 37, (181, 190), padding (5, 0), hflip 0": (37, (181, 190), (5, 0), 0.0)}
+    for name, (n, size, padding, hflip) in cases.items():
+        idx = rng.permutation(TAIL_POOL)[:n]
+
+        def run_native(s, idx=idx, size=size, padding=padding, hflip=hflip):
+            if (size, padding, hflip) == ds.aug[1:]:  # the loader's path
+                return ds.batch(idx, np.random.default_rng(s))["x"]
+            return native.gather_crop_flip(pool, idx, np.random.default_rng(s), size, padding,
+                                           hflip)
+
+        def run_plain(s, idx=idx, size=size, padding=padding, hflip=hflip):
+            return augment.gather_crop_flip(pool, idx, np.random.default_rng(s), size, padding,
+                                            hflip)
+        for s in range(3):
+            got, ref = run_native(s), run_plain(s)
+            if got.shape != (n, *size, 1) or not np.array_equal(got, ref):
+                raise AssertionError(f"tail: native pass != plain version ({name}, seed {s}): "
+                                     f"{int((got != ref).sum())} bytes differ")
+        times = {}
+        for what, fn in (("native", run_native), ("plain", run_plain)):
+            ts = []
+            for s in range(10):
+                t1 = time.perf_counter()
+                fn(s)
+                ts.append((time.perf_counter() - t1) * 1e3)
+            times[what] = statistics.median(ts)
+        out["cases"][name] = {"ms_native": times["native"], "ms_plain": times["plain"],
+                              "identical": True}
+        log("tail", f"native pass == plain version byte for byte, {name}: "
+                    f"{times['native']:.3f} ms a batch against {times['plain']:.3f} ms "
+                    f"(median of 10, host clock)")
+    return out
+
+
+def tail_s2d():
+    """s2d_conv against F.conv2d on the card at a narrow ukbb192 192^2 conv
+    (C 32 -> 8, 3x3, bs 32): float32 with TF32 off within 1e-4 of F.conv2d
+    (the packed conv sums in another order); bf16 within 2 bf16 ulps of the
+    largest output of the float32 conv of the same rounded inputs. Times
+    (CUDA graphs) of the plain conv, the stage-packed conv (s2d_conv with
+    packed_in and packed_out, its kernel packed in the call), the packed
+    conv alone and s2d_conv with its pack and unpack."""
+    import torch
+    import torch.nn.functional as F
+
+    from causal_gen_tpu_torch.ops import s2d
+
+    bs, c, b, r = TAIL_S2D
+    g = torch.Generator().manual_seed(SEED + 91)
+    x = torch.randn(bs, c, r, r, generator=g).cuda()
+    w = (torch.randn(b, c, 3, 3, generator=g) / math.sqrt(9 * c)).cuda()
+    bias = (0.1 * torch.randn(b, generator=g)).cuda()
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        xd, wd, bd = x.to(dtype), w.to(dtype), bias.to(dtype)
+        ref32 = F.conv2d(xd.float(), wd.float(), bd.float(), padding=1)
+        plain = F.conv2d(xd, wd, bd, padding=1)
+        got = s2d.s2d_conv(xd, wd, bd)
+        err = (got.float() - ref32).abs().max().item()
+        err_plain = (plain.float() - ref32).abs().max().item()
+        tol = 1e-4 if dtype == torch.float32 else 2 * bf16_ulp(ref32.abs().max()).item()
+        if not err <= tol:
+            raise AssertionError(f"tail: s2d_conv {dtype} max abs err {err:.3e} > {tol:.3e}")
+        p = s2d.pack_space_to_depth(xd)
+        wp = s2d.pack_kernel_3x3(wd)
+        fns = {"plain_conv": lambda: F.conv2d(xd, wd, bd, padding=1),
+               "s2d_stage_packed": lambda: s2d.s2d_conv(p, wd, bd, packed_in=True,
+                                                        packed_out=True),
+               "packed_conv_only": lambda: F.conv2d(p, wp, padding=1),
+               "s2d_conv_with_pack_unpack": lambda: s2d.s2d_conv(xd, wd, bd)}
+        us = {k: cuda_time_ms([fn], reps=20, per_graph=12) * 1e3 for k, fn in fns.items()}
+        name = str(dtype)[6:]
+        out[name] = {"max_abs_err": err, "plain_max_abs_err": err_plain, "tol": tol, "us": us}
+        log("tail", f"s2d_conv {name} at (bs {bs}, C {c} -> {b}, {r}^2, 3x3): max abs err "
+                    f"{err:.3e} against the float32 conv (F.conv2d {name}: {err_plain:.3e}; "
+                    f"tol {tol:.1e}); us a call: "
+                    + ", ".join(f"{k} {v:.1f}" for k, v in us.items()))
+    return out
+
+
+def tail_profile():
+    """One Morpho-MNIST float32 train step at bs 32 (the main path, its
+    launches counted) under utils/profiling.trace: trace_ops_torch's reader
+    finds K1's and K1-bwd's kernels in the trace, 20 each, inside the step's
+    annotate scope; device_time_torch's device ms a step; StepTimer over 5
+    steps."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from causal_gen_tpu_torch.models.hvae import HVAE
+    from causal_gen_tpu_torch.train.state import init_train_state
+    from causal_gen_tpu_torch.train.vae_trainer import to_device, train_step
+    from causal_gen_tpu_torch.utils import profiling
+    from tools.device_time_torch import device_ms_per_iter
+    from tools.trace_ops_torch import read_ops, summarize
+
+    cfg = train_config("morphomnist")
+    state = init_train_state(cfg, HVAE(cfg, device="cuda",
+                                       generator=torch.Generator().manual_seed(SEED)))
+    batch = to_device(synth_batch(cfg, np.random.default_rng(SEED + 92)), torch.device("cuda"))
+    gen = torch.Generator().manual_seed(SEED + 93)
+    train_step(cfg, state, batch, generator=gen)  # warm-up
+    torch.cuda.synchronize()
+    n_sto = len(k1_res(cfg))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tdir:
+        reset_counts()
+        t0 = time.perf_counter()
+        with profiling.trace(tdir):
+            with profiling.annotate(TAIL_STEP_SCOPE):
+                train_step(cfg, state, batch, generator=gen)
+        trace_s = time.perf_counter() - t0
+        counts = read_counts()
+        t0 = time.perf_counter()
+        ops = read_ops(tdir)
+        read_s = time.perf_counter() - t0
+        trace_mb = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(tdir)
+                       for f in fs) / 1e6
+    want = expected_counts(cfg, 1)
+    if counts != want:
+        raise AssertionError(f"tail: launches around the traced step {counts}, expected {want}")
+    found = {k: [op for op in ops if op.device and pat in op.name]
+             for k, pat in (("fused_sample_kl", "sample_kl_kernel"),
+                            ("fused_sample_kl_bwd", "sample_kl_backward_kernel"))}
+    in_scope = {k: sum(TAIL_STEP_SCOPE in op.scopes for op in v) for k, v in found.items()}
+    if any(len(v) != n_sto for v in found.values()) or any(n != n_sto for n in in_scope.values()):
+        raise AssertionError(f"tail: the trace holds K1 / K1-bwd "
+                             f"{[len(v) for v in found.values()]} times, "
+                             f"{list(in_scope.values())} in the step's scope; expected {n_sto}")
+    s = summarize(ops)
+    unscoped = sum(op.us for op in ops if TAIL_STEP_SCOPE not in op.scopes)
+    step_ms = device_ms_per_iter(lambda i: train_step(cfg, state, batch, generator=gen),
+                                 iters=3, windows=2, scope="tail_device_time", tag="tail")
+    timer = profiling.StepTimer(skip_first=0)
+    for _ in range(5):
+        timer.start()
+        timer.stop(train_step(cfg, state, batch, generator=gen))
+    out = {"launches": counts, "trace_kernels": {k: len(v) for k, v in found.items()},
+           "trace_kernels_in_scope": in_scope,
+           "trace_k1_us": {k: sum(op.us for op in v) for k, v in found.items()},
+           "trace_device_ms": s["total_us"] / 1e3, "trace_device_ms_outside_scope": unscoped / 1e3,
+           "trace_events": len(ops), "trace_top": [(n[:80], us, c) for n, us, c in s["by_op"][:6]],
+           "trace_s": trace_s, "read_s": read_s, "trace_mb": trace_mb,
+           "device_ms_per_step": step_ms, "step_timer_ms": timer.mean_ms,
+           "step_timer_images_per_s": timer.throughput(cfg.bs), "step_timer_times": timer.times}
+    log("tail", f"morphomnist float32 step bs {cfg.bs} under profiling.trace ({trace_s:.2f} s, "
+                f"{trace_mb:.1f} MB, read once in {read_s:.2f} s): K1 / K1-bwd kernels "
+                f"{out['trace_kernels']['fused_sample_kl']} / "
+                f"{out['trace_kernels']['fused_sample_kl_bwd']} in the trace, all in the step's "
+                f"scope, {out['trace_k1_us']['fused_sample_kl']:.1f} / "
+                f"{out['trace_k1_us']['fused_sample_kl_bwd']:.1f} us; {len(ops)} device events, "
+                f"{out['trace_device_ms']:.3f} ms ({unscoped / 1e3:.3f} ms outside the scope); "
+                f"launches counted {counts['fused_sample_kl']} + "
+                f"{counts['fused_sample_kl_bwd']}")
+    log("tail", f"device_time_torch: {step_ms:.3f} device ms a step (best of 2 windows of 3); "
+                f"StepTimer over 5 steps: {timer.mean_ms:.3f} ms a step, "
+                f"{out['step_timer_images_per_s']:.1f} images/s (host clock)")
+    return out
+
+
+def phase_tail(smi):
+    """Phase 28 (module docstring)."""
+    import torch
+
+    from tools import mfu_torch
+
+    t0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False  # the float32 checks and MFU's float32 peak
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"card": smi, "native": tail_native(), "s2d": tail_s2d(), "profile": tail_profile()}
+    mfu = mfu_torch.measure(train_config("morphomnist", bs=BENCH_BS), windows=3, iters=3,
+                            seed=SEED)
+    if mfu["peak"] != "float32" or not mfu["flops_per_step_g"] > 0:
+        raise AssertionError(f"tail: mfu_torch peak {mfu['peak']}, FLOPs {mfu['flops_per_step_g']}")
+    out["mfu"] = mfu
+    log("tail", f"mfu_torch morphomnist bs {BENCH_BS} float32 (TF32 off): "
+                f"{mfu['ms_per_step_best']:.3f} ms a step best, {mfu['ms_per_step_median']:.3f} "
+                f"median (3 windows of 3), {mfu['flops_per_step_g']:.2f} GFLOP a step "
+                f"(FlopCounterMode: convs and matmuls), MFU {mfu['mfu_best_pct']:.2f}% of "
+                f"{mfu_torch.H100_PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s; {mfu['card']}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4757,7 +4997,7 @@ def main() -> int:
         ("dense_cf", lambda: phase_dense_cf(cfg)), ("cmnist_cf", phase_cmnist_cf),
         ("simple_vae", phase_simple_vae), ("cf_train", phase_cf_train),
         ("remat", phase_remat), ("viz", phase_viz), ("e2e", phase_e2e),
-        ("parallel", phase_parallel)]
+        ("parallel", phase_parallel), ("tail", lambda: phase_tail(smi))]
     chosen = None if args.phases is None else set(args.phases.split(","))
     if chosen is not None and not chosen <= {n for n, _ in phases}:
         raise SystemExit(f"--phases: unknown {sorted(chosen - {n for n, _ in phases})}")
@@ -4780,6 +5020,7 @@ def main() -> int:
     mim, cp, vol, pgm = res["mimic"], res["cond_prior"], res["vol3d"], res["pgm_train"]
     dcf, ccf, svae, cft = res["dense_cf"], res["cmnist_cf"], res["simple_vae"], res["cf_train"]
     rem, vz, e2e, par = res["remat"], res["viz"], res["e2e"], res["parallel"]
+    tl = res["tail"]
     turns = phase_turns(os.path.abspath(args.parent)) if args.parent else None
     # launches on the main paths, each counted from 0: DSCM.forward (the
     # Morpho-MNIST, ukbb192, ukbb64 and mimic192 serving slices),
@@ -4820,6 +5061,8 @@ def main() -> int:
     # the parallel path: each rank's data-parallel ukbb192 step and spatially sharded
     # forward (2 ranks on one card over gloo), and the NCCL world-1 step
     by_path.update(par["launches"])
+    # the tail: the Morpho-MNIST train step traced through utils/profiling.py
+    by_path["train_step morphomnist under profiling.trace"] = tl["profile"]["launches"]
 
     # K2's float32 kernel also runs in the float32 card-vs-CPU checks, each
     # counted from 0; those launches are listed apart
@@ -4903,7 +5146,7 @@ def main() -> int:
               "entry": entry, "ukbb": uk, "ukbb_sample": uk_samp, "ukbb_train": uk_train,
               "ukbb64": uk64, "mimic": mim, "cond_prior": cp, "vol3d": vol, "pgm_train": pgm,
               "dense_cf": dcf, "cmnist_cf": ccf, "simple_vae": svae, "cf_train": cft,
-              "remat": rem, "viz": vz, "e2e": e2e, "parallel": par, "turns": turns,
+              "remat": rem, "viz": vz, "e2e": e2e, "parallel": par, "tail": tl, "turns": turns,
               "kernels": kernels, "phase_seconds": seconds,
               "total_s": time.perf_counter() - t_start}
     if args.json:

@@ -146,6 +146,39 @@ def test_the_parallel_slice_modules_are_checked(rel):
     assert rel in {str(p.relative_to(ROOT)) for p in _port_sources()}
 
 
+@pytest.mark.parametrize("rel", ["causal_gen_tpu_torch/utils/cache.py",
+                                 "causal_gen_tpu_torch/data/native.py",
+                                 "causal_gen_tpu_torch/ops/s2d.py",
+                                 "causal_gen_tpu_torch/utils/profiling.py",
+                                 "causal_gen_tpu_torch/ops/build.py",
+                                 "causal_gen_tpu_torch/data/datasets.py",
+                                 "causal_gen_tpu_torch/cli/main.py",
+                                 "causal_gen_tpu_torch/cli/train_pgm.py",
+                                 "causal_gen_tpu_torch/cli/train_cf.py",
+                                 "causal_gen_tpu_torch/cli/evaluate.py",
+                                 "tools/trace_ops_torch.py",
+                                 "tools/device_time_torch.py",
+                                 "tools/mfu_torch.py",
+                                 "tools/export_eval_ckpt_torch.py",
+                                 "tools/make_cmnist_torch.py"])
+def test_the_tail_slice_modules_are_checked(rel):
+    """Each module the tail slice adds or changes (the last four counterparts
+    of the JAX package's modules) and its twins of the JAX profiling and
+    data tools are among those held to the rules above; the twins import in
+    the JAX-free interpreter below."""
+    assert rel in {str(p.relative_to(ROOT)) for p in _port_sources()}
+
+
+def test_the_native_pass_has_no_fallback():
+    """data/native.py raises when its build fails: no handler but the
+    compiler's time limit, and no path to the committed binary."""
+    src = (PKG / "data" / "native.py").read_text()
+    handlers = [n for n in ast.walk(ast.parse(src)) if isinstance(n, ast.ExceptHandler)
+                and not (isinstance(n.type, ast.Attribute) and n.type.attr == "TimeoutExpired")]
+    assert not handlers
+    assert '"native" / "augment.cpp"' in src and '"native" / "libcausal_gen_native.so"' not in src
+
+
 def test_the_rank_helpers_import_no_jax():
     """tests/torch_dist.py is what each spawned rank of the parallel tests
     imports: a plain PyTorch process."""
